@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one process per
+source, all started together) and linked into one shared library with a
+plain C interface, loaded with ``ctypes``.  The build runs at first use, never
+at import, into ``build/repro_torch/<hash>/`` under the repository root, keyed
+by a hash of the sources and flags, so a changed source rebuilds and an
+unchanged one is reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LIB_NAME = "librepro_torch_kernels.so"
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclass(frozen=True)
+class BuildInfo:
+    path: Path
+    seconds: float       # 0.0 when an earlier build was reused
+    ptxas_log: str       # nvcc's -Xptxas -v lines (registers, shared memory, spills)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    logs, failed = [], []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"$ {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return "".join(logs)
+
+
+@functools.lru_cache(maxsize=None)
+def build() -> BuildInfo:
+    """Compile the kernel library if this source tree has not been built yet."""
+    out_dir = BUILD_ROOT / _digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        return BuildInfo(lib, 0.0, "")
+    nvcc = _nvcc()
+    tmp = out_dir / f"tmp-{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    objs = [tmp / (src.stem + ".o") for src in _sources()]
+    log = _run_all([
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)]
+        for src, obj in zip(_sources(), objs)
+    ])
+    tmp_lib = tmp / LIB_NAME
+    log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *map(str, objs)]])
+    os.replace(tmp_lib, lib)  # atomic: a concurrent build sees a whole library or none
+    shutil.rmtree(tmp, ignore_errors=True)
+    return BuildInfo(lib, time.perf_counter() - t0, log)
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    lib = ctypes.CDLL(str(build().path))
+    lib.kernels_error_string.argtypes = [ctypes.c_int]
+    lib.kernels_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().kernels_error_string(code).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({msg})")
+
+
+def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

@@ -1,0 +1,23 @@
+"""Models of the port: the dense family so far."""
+
+from .config import ModelConfig
+from .transformer import (
+    decode_step,
+    embed_inputs,
+    forward,
+    generate,
+    init_cache,
+    init_params,
+    prefill,
+)
+
+__all__ = [
+    "ModelConfig",
+    "init_params",
+    "forward",
+    "embed_inputs",
+    "init_cache",
+    "decode_step",
+    "prefill",
+    "generate",
+]

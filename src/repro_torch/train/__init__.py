@@ -1,0 +1,3 @@
+from .coded import make_serve_step
+
+__all__ = ["make_serve_step"]
