@@ -4,21 +4,35 @@
   python3 chip_smoke.py
 
 Phases, one or more printed lines each; any failure exits non-zero:
-  1. device   -- card name, count, and nvidia-smi's name and power limit;
-  2. build    -- nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
-  3. rmsnorm  -- the kernel against its plain PyTorch version on the card;
-  4. attention-- the kernel against its plain PyTorch version on the card;
-  5. slice    -- full-width qwen2-0.5b serving through ``serve()`` (prefill of
-                 8 x 500 prompt tokens, 31 greedy decode steps), with the
-                 kernels' launch counts read around that run; then a float32
-                 teacher-forced run through the kernels and through the plain
-                 versions, whose logits must agree;
-                 A profiled prefill and decode step give the device's busy
-                 time by kernel category and its idle share;
-  6. timings  -- each kernel, its plain version and the nearest PyTorch
-                 library call at the slice's shapes: device time from the
-                 profiler (CUDA events per call beside it), and the least time
-                 the card could take (published H100 peaks).
+  1. device        -- card name, count, and nvidia-smi's name and power limit;
+  2. build         -- nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+  3. rmsnorm       -- the kernel against its plain PyTorch version on the card;
+  4. attention     -- the kernel against its plain PyTorch version on the card;
+  5. gc_coding     -- the coded-combine kernel against its plain version;
+  6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
+     attention-bwd    at the training shapes, in f32 and bf16;
+  7. slice         -- full-width qwen2-0.5b serving through ``serve()`` (prefill
+                      of 8 x 500 prompt tokens, 31 greedy decode steps), with
+                      the kernels' launch counts read around that run; then a
+                      float32 teacher-forced run through the kernels and
+                      through the plain versions, whose logits must agree.
+                      A profiled prefill and decode step give the device's
+                      busy time by kernel category and its idle share;
+  8. train-demo    -- ``train_demo()`` (the multi-model coded MLP training of
+                      ``launch/train.py --demo``) for gc, sr-sgc, m-sgc and
+                      uncoded: every decoded gradient against the full-batch
+                      one, and one ``coded_combine`` launch per encode and
+                      decode the driver made;
+  9. train-full    -- ``VectorizedCodedTrainer`` on full-width qwen2-0.5b in
+                      bf16 (2 models, 8 workers, 4 jobs, GE stragglers) for gc
+                      and m-sgc: simulated clock, coded-step time, peak memory,
+                      exact launches per step, finite losses; a profiled step;
+                      then one f32 coded gradient at 2 layers (full widths and
+                      vocab) against the full-batch gradient and the plain path;
+ 10. timings       -- each kernel, its plain version and the nearest PyTorch
+                      library call at the main path's shapes: device time from
+                      the profiler (CUDA events per call beside it), and the
+                      least time the card could take (published H100 peaks).
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -29,6 +43,7 @@ or of the JAX package.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -46,6 +61,24 @@ MAX_SEQ = PROMPT_LEN + NEW_TOKENS
 LOGIT_TOL = 2e-3          # tests/test_prefill.py's prefill/decode tolerance
 RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}       # tests/test_kernels.py
+GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}         # tests/test_kernels.py
+# f32 gradients, kernels against plain autograd: sums over thousands of rows
+# taken in other orders (tests/test_torch_kernels.py GRAD_TOL)
+RMSNORM_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# train-demo: decoded gradient sums over 256 examples (entries up to ~1e2)
+# against the direct full-batch gradient, in f32
+DECODE_TOL = 1e-3
+# train-full's f32 coded gradient at 2 layers: weighted sums of 32 chunk
+# gradients with GC coefficients up to ~5 against the full-batch gradient
+# (tests/test_coded_master.py's rtol; a looser atol for the 151936-row embedding)
+CODED_GRAD_TOL = dict(rtol=2e-3, atol=1e-4)
+DEMO_SCHEMES = ("gc", "sr-sgc", "m-sgc", "uncoded")
+DEMO_JOBS = 8
+TRAIN = dict(n=8, models=2, batch=32, seq=64, jobs=4)
+TRAIN_SCHEMES = {"gc": dict(s=3, prefer_rep=False), "m-sgc": dict(B=1, W=2, lam=2)}
+# GC's coded view of a job: n workers x (s+1) slots x batch/n sequences
+TRAIN_SEQS = TRAIN["n"] * (TRAIN_SCHEMES["gc"]["s"] + 1) * TRAIN["batch"] // TRAIN["n"]
+TRAIN_ROWS = TRAIN_SEQS * TRAIN["seq"]
 
 
 def fail(msg: str) -> None:
@@ -91,9 +124,13 @@ def main() -> None:
         from repro_torch.configs import get_config
         from repro_torch.kernels import _build
         from repro_torch.kernels.flash_attention.flash_attention import flash_attention as fa_kernel
+        from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd as fa_bwd
         from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.kernels.gc_coding import ref as gc_ref
+        from repro_torch.kernels.gc_coding.gc_coding import coded_combine as gc_kernel
         from repro_torch.kernels.rmsnorm import ref as rn_ref
         from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm as rn_kernel
+        from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd as rn_bwd
         from repro_torch.launch.serve import serve
         from repro_torch.models import decode_step, init_params, prefill
     except ImportError as e:
@@ -184,8 +221,57 @@ def main() -> None:
             errs["flash_attention"] = err
     torch.cuda.synchronize()
 
-    # 5. slice: full-width serving through the port's entry point
     cfg = get_config(ARCH)
+
+    # 5. gc_coding kernel vs plain: tests/test_kernels.py's sweep, and the
+    # --demo MLP's gradient size (9,610 values)
+    for k in (1, 3, 16, 28):
+        for d in (128, 1000, 9610, 16384, 40000):
+            for dtype in (torch.float32, torch.bfloat16):
+                parts, w = randn(k, d, dtype=dtype), randn(k)
+                err = compare("gc_coding", f"k {k} d {d} {dtype}", gc_kernel(parts, w),
+                              gc_ref.coded_combine(parts, w), GC_TOL[_dtype_name(dtype)])
+                if (k, d, dtype) == (28, 40000, torch.bfloat16):
+                    errs["coded_combine"] = err
+    torch.cuda.synchronize()
+
+    # 6. backward kernels vs the plain versions' autograd, at the training
+    # shapes (the coded GC view: 128 sequences of 64 tokens) and a few others
+    for rows, d in [(TRAIN_ROWS, cfg.d_model), (130, 640), (3, 100)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g, dy = randn(rows, d, dtype=dtype), randn(d, dtype=dtype), randn(rows, d, dtype=dtype)
+            got = rn_bwd(x, g, dy)
+            xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+            want = torch.autograd.grad(rn_ref.rmsnorm(xr, gr), (xr, gr), dy)
+            tol = RMSNORM_BWD_TOL[_dtype_name(dtype)]
+            err = max(compare("rmsnorm-bwd", f"{name} ({rows}, {d}) {dtype}", a, b, tol)
+                      for name, a, b in zip(("dx", "dgamma"), got, want))
+            if (rows, dtype) == (TRAIN_ROWS, torch.bfloat16):
+                errs["rmsnorm_bwd"] = err
+    torch.cuda.synchronize()
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    for b, h, g_kv, sq, causal, window, dtype in [
+        (TRAIN_SEQS, hq, hkv, TRAIN["seq"], True, 0, torch.float32),
+        (TRAIN_SEQS, hq, hkv, TRAIN["seq"], True, 0, torch.bfloat16),
+        (2, hq, hkv, 33, True, 0, torch.float32),
+        (1, 4, 2, 256, True, 96, torch.float32),
+        (1, 8, 1, 200, False, 0, torch.float32),
+    ]:
+        q, k, v, do = (heads_view(b, hh, sq, dh, dtype) for hh in (h, g_kv, g_kv, h))
+        out, lse = fa_kernel(q, k, v, causal=causal, window=window, return_lse=True)
+        got = fa_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        want = torch.autograd.grad(fa_ref.attention(qr, kr, vr, causal=causal, window=window),
+                                   (qr, kr, vr), do)
+        err = max(compare("attention-bwd", f"{name} q {tuple(q.shape)} kv {tuple(k.shape)} "
+                          f"{dtype} causal {causal} window {window}", a, bb,
+                          ATTN_TOL[_dtype_name(dtype)])
+                  for name, a, bb in zip(("dq", "dk", "dv"), got, want))
+        if (b, dtype) == (TRAIN_SEQS, torch.bfloat16):
+            errs["flash_attention_bwd"] = err
+    torch.cuda.synchronize()
+
+    # 7. slice: full-width serving through the port's entry point
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     say("slice", f"{ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, "
                  f"{cfg.param_count()} params in {cfg.dtype}")
@@ -247,7 +333,14 @@ def main() -> None:
     del p32, k_cache, p_cache
     torch.cuda.empty_cache()
 
-    # 6. timings at the slice's shapes (bf16, as served)
+    # 8. train-demo: the multi-model coded MLP training of launch/train.py --demo
+    launches["coded_combine"] = _train_demo(dev)
+
+    # 9. train-full: VectorizedCodedTrainer at full qwen2-0.5b width, bf16
+    launches.update(_train_full(dev, cfg))
+    _coded_gradient_check(dev, cfg)
+
+    # 10. timings at the main paths' shapes (bf16, as served and trained)
     rows = []
     x = randn(BATCH * PROMPT_LEN, cfg.d_model, dtype=torch.bfloat16)
     g = randn(cfg.d_model, dtype=torch.bfloat16)
@@ -279,6 +372,7 @@ def main() -> None:
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
         fa_bytes, fa_ops, "bf16_tensor", iters=100,
     ))
+    rows += _training_timings(dev, cfg, randn, heads_view)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
@@ -292,6 +386,249 @@ def main() -> None:
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).split(".")[1]
+
+
+def _train_demo(dev) -> int:
+    """train_demo() for each scheme, every decode checked; returns the
+    coded_combine launches of the four runs."""
+    import numpy as np
+
+    from repro_torch.kernels.gc_coding.gc_coding import coded_combine
+    from repro_torch.launch.train import train_demo
+
+    total = 0
+    for name in DEMO_SCHEMES:
+        coded_combine.launches = 0
+        res = train_demo(name, jobs=DEMO_JOBS, device=dev, check_decodes=True)
+        launched, drv = coded_combine.launches, res.driver
+        say("train-demo", f"{name}: {DEMO_JOBS} jobs, n {drv.scheme.n}, batch {drv.batch_size}: "
+                          f"simulated clock {res.clock:.6f} s, wall {res.wall_s:.3f} s; "
+                          f"coded_combine launches {launched} = {drv.encodes} encodes + "
+                          f"{drv.decodes} decodes; decoded vs full-batch gradient max_abs_err "
+                          f"{res.max_decode_err:.3e} (tol {DECODE_TOL:g}); final losses "
+                          f"{[round(x, 4) for x in res.final_losses]}")
+        if launched != drv.encodes + drv.decodes:
+            fail(f"train-demo {name}: {launched} coded_combine launches for "
+                 f"{drv.encodes} encodes and {drv.decodes} decodes")
+        if not res.max_decode_err <= DECODE_TOL:
+            fail(f"train-demo {name}: a decoded gradient is off by {res.max_decode_err:.3e}")
+        if not np.isfinite(res.final_losses).all():
+            fail(f"train-demo {name}: non-finite losses {res.final_losses}")
+        total += launched
+    return total
+
+
+def _train_full(dev, cfg) -> dict:
+    """VectorizedCodedTrainer at full width for each scheme; returns the
+    training kernels' launches over both runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GilbertElliotSource, make_scheme
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.gc_coding.gc_coding import coded_combine
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.train import VectorizedCodedTrainer
+
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd, "coded_combine": coded_combine}
+    L = cfg.num_layers
+    # per coded step: one forward and one backward of each norm and attention
+    per_step = {"flash_attention": L, "flash_attention_bwd": L, "rmsnorm": 2 * L + 1,
+                "rmsnorm_bwd": 2 * L + 1, "coded_combine": 0}
+    totals = dict.fromkeys(("rmsnorm_bwd", "flash_attention_bwd"), 0)
+    for name, kw in TRAIN_SCHEMES.items():
+        sch = make_scheme(name, TRAIN["n"], TRAIN["jobs"], **kw)
+        tr = VectorizedCodedTrainer(scheme=sch, cfg=cfg, num_models=TRAIN["models"],
+                                    batch_size=TRAIN["batch"], seq_len=TRAIN["seq"], lr=1e-4,
+                                    seed=0, device=dev)
+        delays = GilbertElliotSource(n=TRAIN["n"], seed=0).sample_delays(
+            TRAIN["jobs"] + sch.T + 1)
+        step, times, last = tr._step, [], {}
+
+        def timed(*args, step=step, times=times, last=last):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            last["args"] = args
+            return out
+
+        tr._step = timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        clock = tr.run(TRAIN["jobs"], delays)
+        launches = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steps = len(times)
+        n_seq = TRAIN["n"] * tr.slots * TRAIN["batch"] // tr.num_chunks
+        losses = [x for m in range(TRAIN["models"]) for x in tr.losses[m]]
+        median_ms = statistics.median(times[1:]) * 1e3
+        say("train-full", f"{name} {kw}: {steps} coded steps of {n_seq} sequences x "
+                          f"{TRAIN['seq']} tokens ({TRAIN['models']} models, n {TRAIN['n']}, "
+                          f"batch {TRAIN['batch']}); simulated clock {clock:.6f} s; "
+                          f"job_done_time {tr.job_done_time}")
+        say("train-full", f"{name}: coded step {median_ms:.3f} ms median after a warm-up step "
+                          f"(all: {[round(t * 1e3, 3) for t in times]} ms); "
+                          f"max_memory_allocated {peak} B; losses {[round(x, 4) for x in losses]}")
+        say("train-full", f"{name}: launches per step "
+                          f"{ {k: v / steps for k, v in launches.items()} } (expected {per_step})")
+        if any(launches[k] != per_step[k] * steps for k in per_step):
+            fail(f"train-full {name}: launches {launches} over {steps} steps, expected "
+                 f"{per_step} per step")
+        if steps != TRAIN["jobs"] or not np.isfinite(losses).all():
+            fail(f"train-full {name}: {steps} steps, losses {losses}")
+        for k in totals:
+            totals[k] += launches[k]
+        _breakdown(f"profile train-full {name} step",
+                   _device_events(lambda: step(*last["args"])), median_ms)
+        del tr, last
+        torch.cuda.empty_cache()
+    return totals
+
+
+def _coded_gradient_check(dev, cfg) -> None:
+    """One f32 coded gradient at 2 layers (full widths and vocab): through
+    the kernels against the full-batch gradient and against the plain path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_scheme
+    from repro_torch.data import coded_slot_batch, token_batch
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.coded import coded_loss, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg32 = cfg.replace(dtype="float32", num_layers=2)
+    n = TRAIN["n"]
+    sch = make_scheme("gc", n, 1, **TRAIN_SCHEMES["gc"])
+    stragglers = np.zeros(n, dtype=bool)
+    stragglers[[1, 4, 6]] = True  # s = 3 stragglers
+    sch.step(1, stragglers)
+    (jd,) = sch.collect_decodes(1)
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(1))
+    batch = token_batch(0, 1, TRAIN["batch"], TRAIN["seq"], cfg32.vocab_size, device=dev)
+    coded = coded_slot_batch(batch, sch.chunk_slots(1), n)
+    w = torch.from_numpy(sch.decode_weights(jd)).to(dev)
+    got = value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n), params)
+    for what, plain, fn in (
+        ("full-batch gradient", False, lambda p: loss_fn(p, cfg32, batch, aux_weight=0.0)),
+        ("plain path's coded gradient", True, lambda p: coded_loss(p, cfg32, coded, w, n,
+                                                                    plain=True)),
+    ):
+        want = value_and_grad(fn, params)
+        worst = max(float((a - b).abs().max()) for a, b in
+                    zip(tree_leaves(got[1]), tree_leaves(want[1])))
+        ok = all(torch.allclose(a, b, **CODED_GRAD_TOL) for a, b in
+                 zip(tree_leaves(got[1]), tree_leaves(want[1])))
+        say("train-full", f"f32 2-layer coded gradient (stragglers {np.flatnonzero(stragglers)})"
+                          f" vs {what}: loss {float(got[0]):.6f} vs {float(want[0]):.6f}, "
+                          f"max_abs_err {worst:.3e} ({CODED_GRAD_TOL}) {'ok' if ok else 'MISMATCH'}")
+        if not ok or abs(float(got[0]) - float(want[0])) > 1e-4:
+            fail(f"train-full: the f32 coded gradient disagrees with the {what}")
+        del want
+    del got, params
+    torch.cuda.empty_cache()
+
+
+def _training_timings(dev, cfg, randn, heads_view) -> list:
+    """Timing rows of the training path's kernels, at its shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.gc_coding import coded_combine_tree
+    from repro_torch.kernels.gc_coding import ref as gc_ref
+    from repro_torch.kernels.gc_coding.gc_coding import coded_combine
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd
+    from repro_torch.train.driver import _tree_weighted_sum
+
+    rows = []
+
+    def combine_case(k, d, dtype, iters):
+        parts, w = randn(k, d, dtype=dtype), randn(k)
+        wl = w.to(dtype)
+        n_bytes = parts.numel() * parts.element_size() + d * parts.element_size() + 4 * k
+        return _timed(
+            "coded_combine", "src/repro_torch/kernels/csrc/gc_coding.cu",
+            "src/repro/kernels/gc_coding/gc_coding.py:33", (k, d),
+            lambda: coded_combine(parts, w), lambda: gc_ref.coded_combine(parts, w),
+            lambda: wl @ parts, n_bytes, 2 * k * d, "f32", iters=iters,
+        )
+
+    # the design size: a whole qwen2-0.5b gradient, bf16
+    D = cfg.param_count()
+    row = combine_case(8, D, torch.bfloat16, 20)
+    rows.append(row)
+    for k, d, dtype in ((4, D, torch.bfloat16), (3, 9610, torch.float32),
+                        (14, 9610, torch.float32), (32, 9610, torch.float32)):
+        r = combine_case(k, d, dtype, 20 if d == D else 500)
+        say("timings", f"coded_combine k {k} D {d} {_dtype_name(dtype)}: kernel {r['ms']:.5f} ms, "
+                       f"plain {r['plain_ms']:.5f} ms, library (w @ parts) {r['library_ms']:.5f} "
+                       f"ms, bound {r['bound_ms']:.5f} ms; per call kernel {r['call_ms']:.5f} ms")
+    # the driver's tree combine: stack k MLP gradients, concatenate the leaves
+    # into one (k, 9610) buffer, one kernel, split back
+    shapes = {"w1": (64, 128), "b1": (128,), "w2": (128, 10), "b2": (10,)}
+    trees = [{name: randn(*shape) for name, shape in shapes.items()} for _ in range(14)]
+    ws = [float(i + 1) for i in range(14)]
+    stacked = {name: torch.stack([t[name] for t in trees]) for name in shapes}
+    say("timings", f"driver combine of 14 MLP gradients: _tree_weighted_sum "
+                   f"{_device_ms(lambda: _tree_weighted_sum(trees, ws), 500):.5f} ms device, "
+                   f"{_cuda_ms(lambda: _tree_weighted_sum(trees, ws), 500):.5f} ms per call; "
+                   f"coded_combine_tree of the stacked tree "
+                   f"{_device_ms(lambda: coded_combine_tree(stacked, ws), 500):.5f} ms device, "
+                   f"{_cuda_ms(lambda: coded_combine_tree(stacked, ws), 500):.5f} ms per call")
+    torch.cuda.empty_cache()
+
+    x = randn(TRAIN_ROWS, cfg.d_model, dtype=torch.bfloat16)
+    g = randn(cfg.d_model, dtype=torch.bfloat16)
+    dy = randn(TRAIN_ROWS, cfg.d_model, dtype=torch.bfloat16)
+    xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    y_plain = rn_ref.rmsnorm(xr, gr)
+    y_lib = F.rms_norm(xr, (cfg.d_model,), weight=gr, eps=1e-6)
+    rows.append(_timed(
+        "rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+        "src/repro/kernels/rmsnorm/rmsnorm.py:22", tuple(x.shape),
+        lambda: rmsnorm_bwd(x, g, dy),
+        lambda: torch.autograd.grad(y_plain, (xr, gr), dy, retain_graph=True),
+        lambda: torch.autograd.grad(y_lib, (xr, gr), dy, retain_graph=True),
+        3 * x.numel() * x.element_size() + 2 * g.numel() * g.element_size(),
+        10 * x.numel(), "f32", iters=200,
+    ))
+
+    hq, hkv, dh, s = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, TRAIN["seq"]
+    q, k, v, do = (heads_view(TRAIN_SEQS, h, s, dh, torch.bfloat16) for h in (hq, hkv, hkv, hq))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    y_plain = fa_ref.attention(qr, kr, vr, causal=True)
+    y_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+    pairs = TRAIN_SEQS * hq * s * (s + 1) // 2
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, do, q, k, v)) + \
+        lse.numel() * 4
+    rows.append(_timed(
+        "flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:45", tuple(q.shape),
+        lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+        lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do, retain_graph=True),
+        lambda: torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True),
+        n_bytes, 10 * dh * pairs, "bf16_tensor", iters=100,
+    ))
+    return rows
 
 
 def _logit_check(name, got, want, quiet=False) -> float:
@@ -357,6 +694,12 @@ def _device_ms(fn, iters: int) -> float | None:
 
 
 def _category(name: str) -> str:
+    if "attn_bwd" in name:
+        return "flash_attention backward kernels"
+    if "rmsnorm_bwd" in name:
+        return "rmsnorm backward kernels"
+    if "coded_combine_kernel" in name:
+        return "coded_combine kernel"
     if "attn_fwd_kernel" in name:
         return "flash_attention kernel"
     if "rmsnorm_kernel" in name:
@@ -375,6 +718,13 @@ def _breakdown(phase: str, events, wall_ms: float) -> None:
         cats[_category(name)] = cats.get(_category(name), 0.0) + t / 1e3
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         say(phase, f"  {cat}: {ms:.3f} ms ({ms / busy:.3f} of busy)")
+    # the largest single device activities, by name, of the "other" category
+    names: dict[str, list] = {}
+    for name, t in events:
+        if _category(name).startswith("other"):
+            names.setdefault(name, []).append(t / 1e3)
+    for name, ts in sorted(names.items(), key=lambda kv: -sum(kv[1]))[:5]:
+        say(phase, f"    {sum(ts):.3f} ms in {len(ts)} x {name[:90]}")
 
 
 def _timed(name, source, replaces, shape, kernel, plain, library, n_bytes, n_ops, op_type,

@@ -1,10 +1,16 @@
-"""Weights bridge from the JAX package.
+"""State bridge from the JAX package.
 
-``params_from_jax`` takes the JAX package's parameter pytree, converted to
-numpy arrays (``jax.tree.map(np.asarray, params)``), and returns the port's
-parameters.  Both packages keep dense weights as (d_in, d_out) applied as
-``x @ w``, so no weight is transposed; the stacked ``layers`` arrays (L, ...)
-are split into one dict per layer, and a tied head stays ``embed.T``.
+Each converter takes a JAX package pytree converted to numpy arrays
+(``jax.tree.map(np.asarray, tree)``) and returns the port's counterpart:
+
+* ``params_from_jax``: a model's parameters.  Both packages keep dense
+  weights as (d_in, d_out) applied as ``x @ w``, so no weight is
+  transposed; the stacked ``layers`` arrays (L, ...) are split into one
+  dict per layer, and a tied head stays ``embed.T``.
+* ``mlp_params_from_jax``: the coded-training driver's ``MLPModel``
+  parameters (a flat dict, f32).
+* ``adamw_state_from_jax``: an ``AdamWState``, its f32 moments laid out as
+  the parameters they belong to.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import torch_dtype
+from repro_torch.optim import AdamWState
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -40,3 +47,16 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda", dtype=None) -> 
         for i in range(cfg.num_layers)
     ]
     return params
+
+
+def mlp_params_from_jax(tree: dict, device="cuda") -> dict:
+    return _map(tree, lambda a: _tensor(a, device, torch.float32))
+
+
+def adamw_state_from_jax(state, cfg: ModelConfig, device="cuda") -> AdamWState:
+    """The AdamW state of a model of ``cfg``; its moments stay f32."""
+
+    def conv(t):
+        return params_from_jax(t, cfg, device, torch.float32)
+
+    return AdamWState(step=int(np.asarray(state.step)), m=conv(state.m), v=conv(state.v))

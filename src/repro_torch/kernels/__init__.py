@@ -1,18 +1,21 @@
 """Hand-written Hopper kernels for the compute hot spots.
 
 Each kernel package mirrors the JAX package's trio:
-  * ``<name>.py`` — the wrapper of a CUDA C++ kernel in ``csrc/<name>.cu``
-    (built by ``_build.py``); it checks its inputs, launches on PyTorch's
-    current stream, raises on a launch error, and counts its launches in
-    ``<name>.launches``;
+  * ``<name>.py`` — the wrappers of CUDA C++ kernels in ``csrc/`` (built by
+    ``_build.py``); each checks its inputs, launches on PyTorch's current
+    stream, raises on a launch error, and counts its calls in
+    ``<wrapper>.launches``;
   * ``ops.py``    — the public op, dispatching on the tensor's device: the
-    plain version for a CPU tensor, the kernel for a CUDA tensor;
-  * ``ref.py``    — the plain PyTorch version the kernel is held against.
+    plain version for a CPU tensor, the kernels for a CUDA tensor (forward
+    and, through a ``torch.autograd.Function``, backward);
+  * ``ref.py``    — the plain PyTorch version the kernels are held against.
 
 Kernels:
-  * ``rmsnorm``         — fused RMSNorm (bandwidth-bound).
-  * ``flash_attention`` — blocked GQA attention forward with causal,
-    sliding-window and valid-key masks.
+  * ``gc_coding``       — the coded combine of gradient coding, weights @ parts
+    (bandwidth-bound): GC encode and survivor-weighted decode.
+  * ``rmsnorm``         — fused RMSNorm forward and backward (bandwidth-bound).
+  * ``flash_attention`` — blocked GQA attention forward and backward with
+    causal, sliding-window and valid-key masks.
 """
 
-from . import flash_attention, rmsnorm  # noqa: F401
+from . import flash_attention, gc_coding, rmsnorm  # noqa: F401

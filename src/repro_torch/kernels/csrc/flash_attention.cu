@@ -26,6 +26,9 @@
 // * q, k, v and o are addressed through (batch, head, seq) strides with a
 //   contiguous last dim, so callers pass head-transposed views without copies.
 // * q tiles are issued last-first, so the longest causal tiles start first.
+// * When a gradient is wanted, each row's log-sum-exp of its scaled scores goes
+//   to an f32 (b, hq, sq) buffer for the backward (flash_attention_bwd.cu);
+//   a fully masked row stores +inf, so that its probabilities come out 0.
 
 #include <math.h>
 
@@ -49,7 +52,7 @@ struct AttnArgs {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kBlockQ * (DH / 32))
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, const AttnArgs a) {
+                T* __restrict__ o, float* __restrict__ lse, const AttnArgs a) {
   constexpr int TPR = DH / 32;  // threads per query row
   constexpr int RUNS = 8;       // runs of 4 elements a thread owns: 8 * 4 = 32
   __shared__ __align__(16) float ks[kBlockK][DH];
@@ -141,6 +144,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 
   if (!row_ok) return;
+  if (lse) lse[((long long)bi * a.hq + h) * a.sq + qpos] = l == 0.f ? INFINITY : m + logf(l);
   T* op = o + bi * a.o.b + h * a.o.h + (long long)qpos * a.o.s;
   const float safe_l = l == 0.f ? 1.f : l;  // fully masked rows: acc is 0
 #pragma unroll
@@ -150,17 +154,17 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 }
 
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, int dh,
-                   const AttnArgs& a, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int dh, const AttnArgs& a, cudaStream_t stream) {
   const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.hq, b);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   switch (dh) {
-    case 32: attn_fwd_kernel<T, 32><<<grid, kBlockQ * 1, 0, stream>>>(qt, kt, vt, ot, a); break;
-    case 64: attn_fwd_kernel<T, 64><<<grid, kBlockQ * 2, 0, stream>>>(qt, kt, vt, ot, a); break;
-    case 128: attn_fwd_kernel<T, 128><<<grid, kBlockQ * 4, 0, stream>>>(qt, kt, vt, ot, a); break;
+    case 32: attn_fwd_kernel<T, 32><<<grid, kBlockQ * 1, 0, stream>>>(qt, kt, vt, ot, lse, a); break;
+    case 64: attn_fwd_kernel<T, 64><<<grid, kBlockQ * 2, 0, stream>>>(qt, kt, vt, ot, lse, a); break;
+    case 128: attn_fwd_kernel<T, 128><<<grid, kBlockQ * 4, 0, stream>>>(qt, kt, vt, ot, lse, a); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -170,9 +174,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b, 
 
 // q: (b, hq, sq, dh), k/v: (b, hkv, sk, dh), o: like q; each given by its
 // (batch, head, seq) strides in elements with a contiguous last dim.  Keys at
-// positions >= valid_k are masked.  Returns the launch's cudaError_t.
+// positions >= valid_k are masked.  lse: (b, hq, sq) f32 contiguous, or null when
+// no gradient is wanted.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, float* lse,
     int b, int hq, int hkv, int sq, int sk, int dh,
     long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss,
@@ -186,7 +191,7 @@ extern "C" int flash_attention_fwd(
                    {q_sb, q_sh, q_ss}, {k_sb, k_sh, k_ss}, {v_sb, v_sh, v_ss},
                    {o_sb, o_sh, o_ss}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch<float>(q, k, v, o, b, dh, a, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(q, k, v, o, b, dh, a, s);
+  if (dtype == kFloat32) return launch<float>(q, k, v, o, lse, b, dh, a, s);
+  if (dtype == kBFloat16) return launch<__nv_bfloat16>(q, k, v, o, lse, b, dh, a, s);
   return cudaErrorInvalidValue;
 }

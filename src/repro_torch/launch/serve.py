@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCHS, get_config, get_smoke
+from repro_torch.devices import resolve_device
 from repro_torch.models import init_params, prefill
 from repro_torch.models.config import ModelConfig
 from repro_torch.train.coded import make_serve_step
@@ -39,13 +40,6 @@ class ServeResult:
         """Tokens of the decode steps alone (the prefill's first token excluded)."""
         b, n = self.tokens.shape
         return b * (n - 1) / (self.total_s - self.prefill_s)
-
-
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def _sync(dev: torch.device) -> None:

@@ -8,7 +8,9 @@ from .transformer import (
     generate,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
+    token_nll,
 )
 
 __all__ = [
@@ -20,4 +22,6 @@ __all__ = [
     "decode_step",
     "prefill",
     "generate",
+    "loss_fn",
+    "token_nll",
 ]

@@ -3,10 +3,11 @@
 
 Port of ``src/repro/models/layers.py``.  Parameters are plain dicts of
 tensors in the JAX package's layout: a dense weight is (d_in, d_out) and is
-applied as ``x @ w``.  RMSNorm and prefill attention go through the kernel
-ops, which pick the kernel or the plain version by the tensor's device;
-``plain=True`` takes the plain version on any device, which is how a run on
-the card is held against the same arithmetic without the kernels.
+applied as ``x @ w``.  RMSNorm and training / prefill attention go through
+the kernel ops, which pick the kernels (forward and backward) or the plain
+version by the tensor's device; ``plain=True`` takes the plain version on any
+device, through ordinary autograd, which is how a run on the card is held
+against the same arithmetic without the kernels.
 """
 
 from __future__ import annotations
@@ -121,6 +122,22 @@ def attention_apply(p, x, cfg, *, positions=None, plain: bool = False):
     return out @ p["wo"], (k, v)
 
 
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b over leading batch dims, accumulated in f32 with an f32 result.
+
+    On the card, cuBLAS takes bf16 operands in place (``out_dtype``).  The
+    CPU has no such product, so there the operands are upcast first.
+    """
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.device.type != "cuda":
+        return a.float() @ b.float()
+    lead = a.shape[:-2]
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                    out_dtype=torch.float32)
+    return out.reshape(*lead, a.shape[-2], b.shape[-1])
+
+
 def attention_decode(p, x, cache_k, cache_v, pos: int, cfg):
     """Single-token decode against a KV cache, which it updates in place.
 
@@ -136,11 +153,11 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, cfg):
     cache_v[:, :, pos] = v_new[:, :, 0]
     # GQA without materialising the repeat: fold the q heads into
     # (kv_head, group) and contract against the cache directly, in the
-    # cache's dtype (the product accumulates in f32; a bf16 result is
-    # rounded to bf16 before the softmax, where the JAX package keeps f32).
+    # cache's dtype with f32 accumulation and f32 scores, as the JAX package
+    # does (casting the whole cache to f32 would double its read traffic).
     group = cfg.num_heads // cfg.num_kv_heads
     qg = q.reshape(b, cfg.num_kv_heads, group, dh).to(cache_k.dtype)
-    s = (qg @ cache_k.transpose(-1, -2)).float() * (dh ** -0.5)  # (b, hkv, g, S)
+    s = _f32_product(qg, cache_k.transpose(-1, -2)) * (dh ** -0.5)  # (b, hkv, g, S)
     k_pos = torch.arange(cache_k.shape[2], device=x.device)
     valid = k_pos <= pos
     if cfg.sliding_window > 0:

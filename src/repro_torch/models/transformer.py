@@ -9,7 +9,9 @@ path (``prefill``, ``decode_step``, ``generate``) runs under
 ``torch.inference_mode`` and updates the KV cache in place.
 
 Every entry point takes ``plain=False``; ``plain=True`` runs the plain
-PyTorch versions of the kernels on any device.
+PyTorch versions of the kernels on any device.  ``forward``, ``token_nll``
+and ``loss_fn`` run under autograd: on the card, the kernels' backward
+kernels differentiate them.
 """
 
 from __future__ import annotations
@@ -107,6 +109,24 @@ def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
         x, _, _ = _layer(lp, cfg, x, plain=plain)
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
     return x @ _head(params, cfg), torch.zeros((), device=x.device)
+
+
+def token_nll(params, cfg: ModelConfig, batch, *, plain: bool = False):
+    """(per-token f32 NLL, aux): next-token (b, s-1) for causal LMs, (b, s)
+    otherwise.  Log-softmax in f32 whatever the model dtype."""
+    logits, aux = forward(params, cfg, batch, plain=plain)
+    labels = batch["labels"]
+    if cfg.causal:
+        logits, labels = logits[:, :-1], labels[:, 1:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels[..., None].long())[..., 0], aux
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
+            plain: bool = False):
+    """Mean CE (next-token for causal LMs, per-frame for encoders)."""
+    nll, aux = token_nll(params, cfg, batch, plain=plain)
+    return nll.mean() + aux_weight * aux
 
 
 # ---------------------------------------------------------------------------

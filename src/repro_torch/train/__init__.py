@@ -1,3 +1,21 @@
-from .coded import make_serve_step
+from .coded import (
+    chunk_loss_sum,
+    gc_round_weights,
+    init_train_state,
+    make_coded_train_step,
+    make_serve_step,
+    make_train_step,
+)
+from .driver import CodedTrainingDriver, MLPModel, VectorizedCodedTrainer
 
-__all__ = ["make_serve_step"]
+__all__ = [
+    "CodedTrainingDriver",
+    "MLPModel",
+    "VectorizedCodedTrainer",
+    "chunk_loss_sum",
+    "gc_round_weights",
+    "init_train_state",
+    "make_coded_train_step",
+    "make_serve_step",
+    "make_train_step",
+]

@@ -2,8 +2,10 @@
 
 On the CPU: each plain PyTorch version is held against the JAX package's
 Pallas kernel (interpret mode) and its jnp reference, on the shapes and at
-the tolerances of ``tests/test_kernels.py``.  On the card (``-m cuda``,
-skipped without one): each CUDA kernel is held against its plain version.
+the tolerances of ``tests/test_kernels.py``, and the plain versions'
+autograd gradients against ``jax.grad`` of the reference.  On the card
+(``-m cuda``, skipped without one): each CUDA kernel, forward and backward,
+is held against its plain version.
 The JAX package is imported inside the tests that use it, so that the card
 tests also run where JAX is not installed.
 """
@@ -12,16 +14,25 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.gc import GradientCode
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention as fa_kernel
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd as fa_bwd
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.gc_coding import ops as gc_ops
+from repro_torch.kernels.gc_coding import ref as gc_ref
+from repro_torch.kernels.gc_coding.gc_coding import coded_combine as gc_kernel
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.kernels.rmsnorm import ref as rn_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm as rn_kernel
+from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd as rn_bwd
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}     # tests/test_kernels.py
+# f32 gradients: the packages sum in other orders, over up to ~4000 rows
+GRAD_TOL = 1e-4
 
 
 def _randn(seed, *shapes):
@@ -35,6 +46,23 @@ def _jax():
     from repro.kernels import flash_attention, rmsnorm
 
     return jnp, rmsnorm, flash_attention
+
+
+def _vjp(fn, primals, cotangent):
+    """jax.vjp of fn at the numpy primals, for the numpy cotangent, as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    _, pull = jax.vjp(fn, *(jnp.asarray(a) for a in primals))
+    return [np.asarray(g) for g in pull(jnp.asarray(cotangent))]
+
+
+def _torch_vjp(fn, primals, cotangent, device="cpu"):
+    """torch autograd's vjp of fn at the primals, for the cotangent."""
+    xs = [torch.from_numpy(a).to(device).requires_grad_(True) for a in primals]
+    out = fn(*xs)
+    grads = torch.autograd.grad(out, xs, torch.from_numpy(cotangent).to(device, out.dtype))
+    return out, grads
 
 
 def _both(a, dtype):
@@ -120,6 +148,93 @@ def test_attention_plain_valid_k_masks_trailing_keys():
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+# -- gc_coding: plain version vs the JAX package ---------------------------------
+
+
+@pytest.mark.parametrize("k", [1, 3, 16, 28])
+@pytest.mark.parametrize("d", [128, 1000, 16384, 40000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_coded_combine_plain_matches_jax(k, d, dtype):
+    parts, w = _randn(6, (k, d), (k,))
+    jp, tp = _both(parts, dtype)
+    jw, tw = _both(w, "float32")
+    got = gc_ops.coded_combine(tp, tw)
+    assert got.shape == (d,) and got.dtype == tp.dtype
+    from repro.kernels import gc_coding as jgc
+
+    jnp = _jax()[0]
+    tol = GC_TOL[dtype]
+    _close(_np(got), jgc.ops.coded_combine(jp, jw, interpret=True).astype(jnp.float32), tol)
+    _close(_np(got), jgc.ref.coded_combine(jp, jw).astype(jnp.float32), tol)
+
+
+def test_coded_combine_tree_plain_matches_jax_ref():
+    from repro.kernels import gc_coding as jgc
+
+    shapes = {"wte": (5, 64, 32), "bias": (5, 17), "scalar": (5,)}
+    arrays = dict(zip(shapes, _randn(7, *shapes.values())))
+    (w,) = _randn(8, (5,))
+    jnp = _jax()[0]
+    want = jgc.ref.coded_combine_tree({k: jnp.asarray(a) for k, a in arrays.items()},
+                                      jnp.asarray(w))
+    tree = {k: torch.from_numpy(a) for k, a in arrays.items()}
+    for got in (gc_ops.coded_combine_tree(tree, torch.from_numpy(w)),
+                gc_ref.coded_combine_tree(tree, torch.from_numpy(w))):
+        assert set(got) == set(want)
+        for name in want:
+            assert got[name].shape == tuple(want[name].shape)
+            _close(_np(got[name]), want[name], 1e-5)
+
+
+def test_coded_combine_is_gc_decode():
+    """The port's own GradientCode and coded combine decode a real (8, 3) encode."""
+    code = GradientCode(8, 3, seed=0)
+    (g,) = _randn(9, (8, 512))
+    ell = torch.from_numpy(code.encode_matrix.astype(np.float32)) @ torch.from_numpy(g)
+    beta = code.decode_vector([0, 2, 3, 5, 7])
+    out = gc_ops.coded_combine(ell, beta)
+    _close(out.numpy(), g.sum(0), 1e-4)
+
+
+# -- gradients of the plain versions vs jax.grad of the reference ----------------
+
+
+@pytest.mark.parametrize("shape", [(8, 256), (2, 3, 896), (130, 640), (4000, 64)])
+def test_rmsnorm_plain_grad_matches_jax(shape):
+    x, g, dy = _randn(10, shape, shape[-1:], shape)
+    jrn = _jax()[1]
+    want = _vjp(lambda a, b: jrn.ref.rmsnorm(a, b), (x, g), dy)
+    _, got = _torch_vjp(lambda a, b: rn_ops.rmsnorm(a, b), (x, g), dy)
+    for a, b in zip(got, want):
+        _close(_np(a), b, GRAD_TOL)
+
+
+GRAD_CASES = [  # b, hq, hkv, sq, sk, dh, causal, window: tests/test_kernels.py's shapes
+    (1, 4, 2, 256, 256, 64, True, 0),
+    (2, 8, 8, 128, 128, 32, False, 0),
+    (1, 8, 1, 128, 256, 64, False, 0),
+    (1, 4, 4, 384, 384, 128, True, 0),
+    (1, 4, 2, 256, 256, 64, True, 96),
+    (1, 14, 2, 200, 200, 64, True, 0),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,causal,window", GRAD_CASES)
+def test_attention_plain_grad_matches_jax(b, hq, hkv, sq, sk, dh, causal, window):
+    """Autograd of the plain version against jax.grad of the reference's
+    online-softmax ``_chunked_attention``, scanned in 128-key blocks."""
+    from repro.models.layers import _chunked_attention
+
+    q, k, v, do = _randn(11, (b, hq, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh),
+                         (b, hq, sq, dh))
+    want = _vjp(lambda a, bb, c: _chunked_attention(a, bb, c, causal=causal, window=window,
+                                                    block_k=128), (q, k, v), do)
+    _, got = _torch_vjp(lambda a, bb, c: fa_ops.attention(a, bb, c, causal=causal,
+                                                          window=window), (q, k, v), do)
+    for a, bb in zip(got, want):
+        _close(_np(a), bb, ATTN_TOL["float32"])
+
+
 # -- wrappers refuse what the kernels do not take --------------------------------
 
 
@@ -135,6 +250,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa_kernel(torch.ones(1, 2, 8, 48), torch.ones(1, 2, 8, 48), torch.ones(1, 2, 8, 48))
     assert (rn_kernel.launches, fa_kernel.launches) == before
 
+
+def test_backward_and_combine_wrappers_refuse_cpu_tensors():
+    before = (gc_kernel.launches, rn_bwd.launches, fa_bwd.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        gc_kernel(torch.ones(3, 64), torch.ones(3))
+    with pytest.raises(ValueError, match="CUDA"):
+        rn_bwd(torch.ones(4, 64), torch.ones(64), torch.ones(4, 64))
+    q, lse = torch.ones(1, 2, 8, 64), torch.ones(1, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_bwd(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="no implementation"):
+        gc_ops.coded_combine(torch.empty(3, 64, device="meta"), [1.0, 2.0, 3.0])
+    assert (gc_kernel.launches, rn_bwd.launches, fa_bwd.launches) == before
 
 def test_ops_refuse_devices_without_an_implementation():
     x = torch.empty(4, 64, device="meta")
@@ -195,3 +323,89 @@ def test_attention_kernel_valid_k(cuda_device):
         got = fa_kernel(q, k, v, causal=causal, valid_k=200)
         want = fa_ref.attention(q, k, v, causal=causal, valid_k=200)
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 16, 28, 300])
+@pytest.mark.parametrize("d", [128, 1000, 9610, 16384, 40000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_coded_combine_kernel_matches_plain(cuda_device, k, d, dtype):
+    parts, w = _randn(12, (k, d + 1), (k,))
+    tp = torch.from_numpy(parts).to(cuda_device, DTYPES[dtype])
+    tw = torch.from_numpy(w).to(cuda_device)
+    # k = 300 sums ten times the reference grid's terms, in another order
+    tol = GC_TOL[dtype] if k <= 28 else max(GC_TOL[dtype], 1e-4)
+    # aligned rows, then rows one element off alignment (the kernel's narrow path)
+    for view in (tp[:, :d].contiguous(), tp.reshape(-1)[1:1 + k * d].reshape(k, d)):
+        before = gc_kernel.launches
+        got = gc_ops.coded_combine(view, tw)
+        assert gc_kernel.launches == before + 1
+        assert got.dtype == view.dtype and got.shape == (d,)
+        torch.testing.assert_close(got.float(), gc_ref.coded_combine(view, tw).float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4000, 896), (8192, 896), (130, 640), (1, 8192), (3, 100)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gamma_dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype, gamma_dtype):
+    x, g, dy = _randn(13, shape, shape[-1:], shape)
+    tx = torch.from_numpy(x).to(cuda_device, DTYPES[dtype]).requires_grad_(True)
+    tg = torch.from_numpy(g).to(cuda_device, DTYPES[gamma_dtype]).requires_grad_(True)
+    tdy = torch.from_numpy(dy).to(cuda_device, DTYPES[dtype])
+    before = (rn_kernel.launches, rn_bwd.launches)
+    got = torch.autograd.grad(rn_ops.rmsnorm(tx, tg), (tx, tg), tdy)
+    assert (rn_kernel.launches, rn_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(rn_ref.rmsnorm(tx, tg), (tx, tg), tdy)
+    tol = GRAD_TOL if dtype == gamma_dtype == "float32" else RMSNORM_TOL["bfloat16"]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,hq,hkv,sq,sk,dh,causal,window,dtype",
+    ATTN_CASES + [(128, 14, 2, 64, 64, 64, True, 0, "bfloat16"),
+                  (2, 14, 2, 33, 33, 64, True, 0, "float32"),
+                  (2, 8, 2, 1, 70, 32, False, 0, "float32")],
+)
+@pytest.mark.parametrize("strided", [False, True])
+def test_attention_bwd_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, dh, causal,
+                                            window, dtype, strided):
+    td = DTYPES[dtype]
+    q, k, v, do = _randn(14, (b, sq, hq, dh), (b, sk, hkv, dh), (b, sk, hkv, dh),
+                         (b, sq, hq, dh))
+    q, k, v = (torch.from_numpy(a).to(cuda_device, td).transpose(1, 2) for a in (q, k, v))
+    do = torch.from_numpy(do).to(cuda_device, td).transpose(1, 2)
+    if not strided:
+        q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous()
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = (fa_kernel.launches, fa_bwd.launches)
+    got = torch.autograd.grad(fa_ops.attention(q, k, v, causal=causal, window=window),
+                              (q, k, v), do)
+    assert (fa_kernel.launches, fa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(fa_ref.attention(q, k, v, causal=causal, window=window),
+                               (q, k, v), do)
+    tol = ATTN_TOL[dtype]
+    for a, bb in zip(got, want):
+        assert a.dtype == bb.dtype and a.shape == bb.shape
+        torch.testing.assert_close(a.float(), bb.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_attention_bwd_kernel_valid_k(cuda_device):
+    """Keys past valid_k get zero gradient and take no part in the others."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device) for a in
+                   _randn(15, (1, 4, 256, 64), (1, 2, 256, 64), (1, 2, 256, 64),
+                          (1, 4, 256, 64)))
+    for causal in (False, True):
+        out, lse = fa_kernel(q, k, v, causal=causal, valid_k=200, return_lse=True)
+        got = fa_bwd(q, k, v, out, lse, do, causal=causal, valid_k=200)
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        want = torch.autograd.grad(
+            fa_ref.attention(qq, kk, vv, causal=causal, valid_k=200), (qq, kk, vv), do)
+        for a, bb in zip(got, want):
+            torch.testing.assert_close(a, bb, rtol=2e-4, atol=2e-4)
+        assert not got[1][:, :, 200:].any() and not got[2][:, :, 200:].any()

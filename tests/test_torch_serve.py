@@ -112,6 +112,46 @@ def test_generate_matches_reference(ref, pair):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_bf16_decode_attention_keeps_f32_scores(ref):
+    """bf16 decode attention, port against reference, with scores of ~16 (a
+    bf16 ulp there is 0.125): both contract the bf16 cache with f32
+    accumulation and keep the scores in f32 up to the softmax.  Rounding the
+    scores to bf16 first, as the port once did, moves the outputs by about
+    2.3e-2.  The tolerance, 2e-3, is below one bf16 ulp of the outputs
+    (|out| < 4, ulp 1.6e-2), so the two must round alike."""
+    import repro.models.layers as jl
+
+    import repro_torch.models.layers as tl
+
+    _, jnp, jcfgs, _ = ref
+    jcfg = jcfgs.get_smoke(ARCH).replace(dtype="bfloat16")
+    tcfg = tcfgs.get_smoke(ARCH).replace(dtype="bfloat16")
+    d, hq, hkv, dh = tcfg.d_model, tcfg.num_heads, tcfg.num_kv_heads, tcfg.head_dim
+    rng = np.random.default_rng(0)
+    big = 4.0  # scales q and k, so the scores' spread is ~big**2
+    p = {"wq": rng.standard_normal((d, hq * dh)) * big / np.sqrt(d),
+         "wk": rng.standard_normal((d, hkv * dh)) * big / np.sqrt(d),
+         "wv": rng.standard_normal((d, hkv * dh)) / np.sqrt(d),
+         "wo": rng.standard_normal((hq * dh, d)) / np.sqrt(hq * dh),
+         "bq": np.zeros(hq * dh), "bk": np.zeros(hkv * dh), "bv": np.zeros(hkv * dh)}
+    b, max_seq, pos = 2, 40, 30
+    x = rng.standard_normal((b, 1, d))
+    ck = rng.standard_normal((b, hkv, max_seq, dh)) * big
+    cv = rng.standard_normal((b, hkv, max_seq, dh))
+
+    def j(a):
+        return jnp.asarray(np.asarray(a, np.float32), jnp.bfloat16)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).bfloat16()
+
+    want, _, _ = jl.attention_decode({k: j(v) for k, v in p.items()}, j(x), j(ck), j(cv),
+                                     jnp.int32(pos), jcfg)
+    got = tl.attention_decode({k: t(v) for k, v in p.items()}, t(x), t(ck), t(cv), pos, tcfg)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=2e-3, atol=2e-3)
+
 def test_prefill_then_decode_matches_forward():
     """The port alone, with its own initialisation: prefill the first K
     tokens, decode the rest one by one, and match the full forward."""
