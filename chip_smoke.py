@@ -29,7 +29,20 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       exact launches per step, finite losses; a profiled step;
                       then one f32 coded gradient at 2 layers (full widths and
                       vocab) against the full-batch gradient and the plain path;
- 10. timings       -- each kernel, its plain version and the nearest PyTorch
+ 10. gate_window   -- both gate-window kernels against their plain versions,
+                      exact, over windows of 0-32 rows, ragged n, strided views;
+ 11. sim           -- ``simulate_batch`` on the Table-1 grid (n 256, 4 schemes,
+                      64 Gilbert-Elliott traces of 44 rounds) in both wait-outs,
+                      on the card and on the CPU: equal under the simulator's
+                      device contract, and equal to the descriptor ``simulate``
+                      on 4 traces; the kernels launch exactly as often as the
+                      CPU run calls their plain versions.  Wall per scheme, host
+                      syncs per round, a profiled run's busy time per round;
+ 12. select        -- App.-J ``select_parameters`` on the card for m-sgc and gc
+                      at n 256 (30-round probe) equals ``select_parameters_legacy``;
+ 13. adaptive      -- ``run_adaptive`` at Fig. 18's configuration (n 64, 60 jobs,
+                      a 20-round uncoded probe, 4 models) beats never switching;
+ 14. timings       -- each kernel, its plain version and the nearest PyTorch
                       library call at the main path's shapes: device time from
                       the profiler (CUDA events per call beside it), and the
                       least time the card could take (published H100 peaks).
@@ -79,6 +92,21 @@ TRAIN_SCHEMES = {"gc": dict(s=3, prefer_rep=False), "m-sgc": dict(B=1, W=2, lam=
 # GC's coded view of a job: n workers x (s+1) slots x batch/n sequences
 TRAIN_SEQS = TRAIN["n"] * (TRAIN_SCHEMES["gc"]["s"] + 1) * TRAIN["batch"] // TRAIN["n"]
 TRAIN_ROWS = TRAIN_SEQS * TRAIN["seq"]
+# the simulator: benchmarks/run.py's Table-1 grid (PARAMS, the GE chain calibrated
+# to Fig. 1, 64 traces of 44 rounds at n 256, alpha 8 = the source's slope)
+SIM = dict(n=256, traces=64, rounds=44, alpha=8.0, seed0=60, parity_traces=4)
+SIM_GE = dict(p_ns=0.035, p_sn=0.85, slow_factor=6.0, jitter=0.05)
+SIM_PARAMS = {"m-sgc": dict(B=2, W=3, lam=27), "sr-sgc": dict(B=2, W=3, lam=23),
+              "gc": dict(s=15), "uncoded": {}}
+# App.-J selection: benchmarks/run.py's small grids on a 30-round probe
+SELECT_GRIDS = {
+    "m-sgc": [{"B": B, "W": W, "lam": lam} for B, W in ((1, 2), (2, 3))
+              for lam in (8, 16, 24, 27, 32)],
+    "gc": [{"s": s} for s in (4, 8, 12, 15, 20, 24)],
+}
+# Fig. 18: run_adaptive's switch from uncoded to m-sgc (benchmarks/run.py)
+ADAPTIVE = dict(n=64, J=60, t_probe=20, models=4, seed=11,
+                grid=[{"B": B, "W": B + 1, "lam": lam} for B in (1, 2) for lam in (8, 16, 24)])
 
 
 def fail(msg: str) -> None:
@@ -340,7 +368,14 @@ def main() -> None:
     launches.update(_train_full(dev, cfg))
     _coded_gradient_check(dev, cfg)
 
-    # 10. timings at the main paths' shapes (bf16, as served and trained)
+    # 10-13. the simulator's device path: the gate-window kernels, the
+    # Table-1 grid, App.-J selection and the adaptive trainer
+    errs.update(_gate_window_check(dev))
+    launches.update(_sim(dev))
+    _select(dev)
+    _adaptive(dev)
+
+    # 14. timings at the main paths' shapes (bf16, as served and trained)
     rows = []
     x = randn(BATCH * PROMPT_LEN, cfg.d_model, dtype=torch.bfloat16)
     g = randn(cfg.d_model, dtype=torch.bfloat16)
@@ -373,14 +408,18 @@ def main() -> None:
         fa_bytes, fa_ops, "bf16_tensor", iters=100,
     ))
     rows += _training_timings(dev, cfg, randn, heads_view)
+    rows += _gate_window_timings(dev)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
-        say("timings", f"{r['name']} {r['shape']} ({r['timing']}): kernel {r['ms']:.5f} ms, "
-                       f"plain {r['plain_ms']:.5f} ms, library {r['library_ms']:.5f} ms, bound "
+        say("timings", f"{r['name']} {r['shape']}: kernel {r['ms']:.5f} ms, "
+                       f"plain {r['plain_ms']:.5f} ms, library {_ms(r['library_ms'])}, bound "
                        f"{r['bound_ms']:.5f} ms by {r['bound_by']}; per call with host "
                        f"overhead: kernel {r['call_ms']:.5f}, plain {r['plain_call_ms']:.5f}, "
-                       f"library {r['library_call_ms']:.5f} ms")
+                       f"library {_ms(r['library_call_ms'])}")
+    n = SPIN_COUNTS["sessions"]
+    say("timings", f"profiler sessions {n}: spins recorded {SPIN_COUNTS['lead']} of {2 * SPINS * n}"
+                   f" before the work, {SPIN_COUNTS['trail']} of {SPINS * n} after it")
     say("done", f"{time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": rows}))
@@ -390,6 +429,10 @@ def main() -> None:
 
 def _dtype_name(dtype) -> str:
     return str(dtype).split(".")[1]
+
+
+def _ms(value) -> str:
+    return "none" if value is None else f"{value:.5f} ms"
 
 
 def _train_demo(dev) -> int:
@@ -631,6 +674,250 @@ def _training_timings(dev, cfg, randn, heads_view) -> list:
     return rows
 
 
+def _sim_parity(ref, got, exact: bool) -> bool:
+    """The simulator's parity contract (the JAX package's
+    ``core.testing.assert_sim_parity``): exact on done rounds, wait-outs and
+    effective patterns; ``exact`` or allclose on the float times."""
+    import numpy as np
+
+    same = (ref.scheme == got.scheme and ref.job_done_round == got.job_done_round
+            and ref.waitouts == got.waitouts and ref.normalized_load == got.normalized_load
+            and ref.effective_pattern.shape == got.effective_pattern.shape
+            and bool((ref.effective_pattern == got.effective_pattern).all())
+            and sorted(ref.job_done_time) == sorted(got.job_done_time))
+    if not same:
+        return False
+    if exact:
+        return (ref.total_time == got.total_time and bool((ref.round_times == got.round_times)
+                .all()) and ref.job_done_time == got.job_done_time)
+    return (bool(np.isclose(ref.total_time, got.total_time))
+            and bool(np.allclose(ref.round_times, got.round_times))
+            and all(np.isclose(v, got.job_done_time[j]) for j, v in ref.job_done_time.items()))
+
+
+def _gate_window_check(dev) -> dict:
+    """Both gate-window kernels against their plain versions on the card,
+    exact: windows of 0-32 rows, B from 1 to past the window, ragged and
+    small n, one cell, the main path's (64, rows, 256), strided views and a
+    folded spec axis.  Returns the largest integer difference per kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gate_window import gate_window as gwk
+    from repro_torch.kernels.gate_window import ops, ref
+
+    rng = np.random.default_rng(0)
+    worst = {"window_stats": 0, "buffer_stats": 0}
+    checked = 0
+
+    def check(which, x, B):
+        nonlocal checked
+        got = getattr(ops, which)(x, B)
+        want = getattr(ref, which)(x, B)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"gate_window {which} {tuple(x.shape)} B {B}: {g.dtype} {tuple(g.shape)} "
+                     f"vs plain {w.dtype} {tuple(w.shape)}")
+            err = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+            worst[which] = max(worst[which], err)
+            if err:
+                fail(f"gate_window {which} {tuple(x.shape)} B {B}: kernel differs from the plain "
+                     f"version by {err}")
+        checked += 1
+
+    for rows in (0, 1, 2, 3, 5, 10, 32):
+        for cells, n in ((1, 7), (5, 33), (37, 130), (64, 256), (3000, 40)):
+            x = torch.from_numpy(rng.random((cells, rows, n)) < 0.3).to(dev)
+            for B in sorted({1, 2, 3, max(rows, 1), rows + 1}):
+                check("buffer_stats", x, B)
+                if rows:
+                    check("window_stats", x, B)
+    x = torch.from_numpy(rng.random((3, 37, 5, 130)) < 0.3).to(dev)
+    for view in (x, x[1][:, 2:], x[:, :, 1:4].transpose(0, 1)[5], x[2, ::2, ::2, 1::3]):
+        for which in ("window_stats", "buffer_stats"):
+            check(which, view, 2)
+    for fn in (gwk.window_stats, gwk.buffer_stats):
+        try:
+            fn(torch.zeros(2, 33, 8, dtype=torch.bool, device=dev), 1)
+            fail("gate_window: a 33-row window did not raise")
+        except ValueError:
+            pass
+    torch.cuda.synchronize()
+    say("gate_window", f"{checked} cases of both kernels exact against their plain versions "
+                       f"(largest difference {max(worst.values())}); 33 rows refused")
+    return worst
+
+
+def _sim(dev) -> dict:
+    """The Table-1 grid through ``simulate_batch`` on the card and on the CPU,
+    in both wait-outs; returns the gate-window launches on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GilbertElliotSource, make_scheme, simulate, simulate_batch
+    from repro_torch.core.kernel import GateKernel
+    from repro_torch.kernels.gate_window import gate_window as gwk
+    from repro_torch.kernels.gate_window import ref as gwr
+
+    n = SIM["n"]
+    traces = np.stack([GilbertElliotSource(n=n, seed=SIM["seed0"] + k, **SIM_GE)
+                       .sample_delays(SIM["rounds"]) for k in range(SIM["traces"])])
+    simulate_batch([("m-sgc", SIM_PARAMS["m-sgc"])], traces[:2, :8], alpha=SIM["alpha"],
+                   device=dev)  # warm-up
+    totals = {"window_stats": 0, "buffer_stats": 0}
+    exact_cells = cells = 0
+    for waitout in ("selective", "all"):
+        for name, params in SIM_PARAMS.items():
+            spec = [(name, params)]
+            gwk.window_stats.launches = gwk.buffer_stats.launches = 0
+            GateKernel.host_syncs = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = simulate_batch(spec, traces, alpha=SIM["alpha"], waitout=waitout,
+                                 device=dev)[0, 0]
+            wall = time.perf_counter() - t0
+            launched = (gwk.window_stats.launches, gwk.buffer_stats.launches)
+            syncs = GateKernel.host_syncs
+            gwr.window_stats.calls = gwr.buffer_stats.calls = 0
+            t0 = time.perf_counter()
+            want = simulate_batch(spec, traces, alpha=SIM["alpha"], waitout=waitout,
+                                  device="cpu")[0, 0]
+            cpu_wall = time.perf_counter() - t0
+            plain = (gwr.window_stats.calls, gwr.buffer_stats.calls)
+            if launched != plain:
+                fail(f"sim {name} {waitout}: kernel launches {launched} on the card, plain "
+                     f"calls {plain} on the CPU")
+            for c, (w, g) in enumerate(zip(want, got)):
+                if not _sim_parity(w, g, exact=False):
+                    fail(f"sim {name} {waitout}: cell {c} differs between the card and the CPU")
+                exact_cells += _sim_parity(w, g, exact=True)
+                cells += 1
+            rounds = got[0].rounds
+            J = len(got[0].job_done_round)
+            for k in range(SIM["parity_traces"]):
+                ref = simulate(make_scheme(name, n, J, **params), traces[k], alpha=SIM["alpha"],
+                               J=J, waitout=waitout)
+                if not _sim_parity(ref, got[k], exact=False):
+                    fail(f"sim {name} {waitout}: trace {k} differs from the descriptor simulate")
+            totals["window_stats"] += launched[0]
+            totals["buffer_stats"] += launched[1]
+            mean = float(np.mean([r.total_time for r in got]))
+            say("sim", f"{name} {params} {waitout}: {SIM['traces']} cells x {rounds} rounds at n "
+                       f"{n} in {wall * 1e3:.3f} ms on the card ({cpu_wall * 1e3:.3f} ms on the "
+                       f"CPU); {syncs / rounds:.3f} host syncs per round; launches window_stats "
+                       f"{launched[0]}, buffer_stats {launched[1]} (= plain calls on the CPU); "
+                       f"mean total time {mean:.6f} s, waitouts "
+                       f"{sum(r.waitouts for r in got)}")
+    say("sim", f"card vs CPU: {cells} cells agree (exact on {exact_cells}); descriptor simulate "
+               f"agrees on {SIM['parity_traces']} traces per scheme and wait-out")
+    if not all(totals.values()):
+        fail(f"sim: a gate-window kernel never launched ({totals})")
+    # where the device time of a run goes: m-sgc's selective run, profiled
+    spec = [("m-sgc", SIM_PARAMS["m-sgc"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    simulate_batch(spec, traces, alpha=SIM["alpha"], device=dev)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _device_events(lambda: simulate_batch(spec, traces, alpha=SIM["alpha"],
+                                                   device=dev))
+    busy_ms = sum(t for _, t in events) / 1e3
+    _breakdown(f"profile sim m-sgc selective, {SIM['rounds']} rounds", events, wall_ms)
+    say("profile sim m-sgc selective", f"per round: device busy {busy_ms / SIM['rounds']:.4f} ms "
+                                       f"of {wall_ms / SIM['rounds']:.4f} ms wall, "
+                                       f"{len(events) / SIM['rounds']:.1f} device activities")
+    return totals
+
+
+def _select(dev) -> None:
+    """App.-J selection on the card against the legacy per-candidate loop."""
+    import numpy as np
+
+    from repro_torch.core import GilbertElliotSource, select_parameters, select_parameters_legacy
+
+    n = SIM["n"]
+    src = GilbertElliotSource(n=n, seed=100, **SIM_GE)
+    probe = src.sample_delays(30)
+    for name, grid in SELECT_GRIDS.items():
+        t0 = time.perf_counter()
+        got = select_parameters(name, n, probe, alpha=src.alpha, grid=grid, device=dev)
+        t_dev = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = select_parameters_legacy(name, n, probe, alpha=src.alpha, grid=grid)
+        t_legacy = time.perf_counter() - t0
+        say("select", f"{name} over {len(grid)} candidates at n {n}: {got.params} (load "
+                      f"{got.load:.6f}, {got.est_time:.6f} s per job) in {t_dev * 1e3:.3f} ms on "
+                      f"the card; legacy {want.params} ({want.est_time:.6f} s per job) in "
+                      f"{t_legacy * 1e3:.3f} ms")
+        if (got.params, got.load) != (want.params, want.load) or \
+                not np.isclose(got.est_time, want.est_time):
+            fail(f"select {name}: the card chose {got}, the legacy loop {want}")
+
+
+def _adaptive(dev) -> None:
+    """run_adaptive at Fig. 18's configuration, against never switching."""
+    import numpy as np
+
+    from repro_torch.core import GilbertElliotSource, make_scheme, simulate
+    from repro_torch.kernels.gate_window import gate_window as gwk
+    from repro_torch.kernels.gc_coding.gc_coding import coded_combine
+    from repro_torch.train import run_adaptive
+
+    a = ADAPTIVE
+    delays = GilbertElliotSource(n=a["n"], p_ns=SIM_GE["p_ns"], p_sn=SIM_GE["p_sn"],
+                                 slow_factor=SIM_GE["slow_factor"],
+                                 seed=a["seed"]).sample_delays(a["J"] + 8)
+    for c in (coded_combine, gwk.window_stats, gwk.buffer_stats):
+        c.launches = 0
+    t0 = time.perf_counter()
+    total, probe, params, drv = run_adaptive(a["models"], a["J"], delays, scheme_name="m-sgc",
+                                             t_probe=a["t_probe"], grid=a["grid"], device=dev)
+    wall = time.perf_counter() - t0
+    launched = (coded_combine.launches, gwk.buffer_stats.launches)
+    never = simulate(make_scheme("uncoded", a["n"], a["J"]), delays, alpha=8.0,
+                     J=a["J"]).total_time
+    final = [drv.losses[m][-1] for m in range(a["models"])]
+    say("adaptive", f"n {a['n']}, {a['J']} jobs, {a['t_probe']}-round uncoded probe, "
+                    f"{a['models']} models: selected {params}; simulated clock {total:.6f} s "
+                    f"(probe {probe:.6f} s) vs never switching {never:.6f} s; wall {wall:.3f} s; "
+                    f"coded_combine launches {launched[0]}, buffer_stats {launched[1]}; final "
+                    f"losses {[round(x, 4) for x in final]}")
+    if not total < never:
+        fail(f"adaptive: switching ({total:.6f} s) does not beat never switching ({never:.6f} s)")
+    if not np.isfinite(final).all() or not all(launched):
+        fail(f"adaptive: losses {final}, launches {launched}")
+
+
+def _gate_window_timings(dev) -> list:
+    """Timing rows of the gate-window kernels at the Table-1 grid's shapes:
+    m-sgc's 2-row bursty buffer and its 3-row all-or-nothing window."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.gate_window import gate_window as gwk
+    from repro_torch.kernels.gate_window import ref as gwr
+
+    rng = np.random.default_rng(1)
+    cells, n = SIM["traces"], SIM["n"]
+    rows = []
+    for name, fn, plain, k, replaces in (
+        ("buffer_stats", gwk.buffer_stats, gwr.buffer_stats, 2, 72),
+        ("window_stats", gwk.window_stats, gwr.window_stats, 3, 54),
+    ):
+        x = torch.from_numpy(rng.random((cells, k, n)) < 0.05).to(dev)
+        outs = fn(x, 2)
+        n_bytes = x.numel() + sum(o.numel() * o.element_size() for o in outs)
+        # per element: a load, a compare, a shift-or and a ballot share; a
+        # handful of popcounts and reductions per worker column
+        rows.append(_timed(
+            name, "src/repro_torch/kernels/csrc/gate_window.cu",
+            f"src/repro/kernels/gate_window/gate_window.py:{replaces}", tuple(x.shape),
+            lambda fn=fn, x=x: fn(x, 2), lambda plain=plain, x=x: plain(x, 2), None,
+            n_bytes, 4 * x.numel() + 8 * cells * n, "f32", iters=500,
+        ))
+    torch.cuda.synchronize()
+    return rows
+
+
 def _logit_check(name, got, want, quiet=False) -> float:
     import torch
 
@@ -664,33 +951,70 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: spin kernels (``torch.cuda._sleep``) launched before and after the work of a
+#: profiled session, and the counts of those the profiler recorded
+SPINS = 16
+SPIN_COUNTS = {"sessions": 0, "lead": 0, "trail": 0}
+
+
 def _device_events(fn):
-    """(name, microseconds) of every device activity the profiler records in fn()."""
+    """(name, microseconds) of every device activity the profiler records in fn().
+
+    The profiler can lose the first or last device activities of a session
+    (on the H100 a single call profiled alone came back empty, and 494 of 500
+    calls were recorded), so fn runs between spin kernels that absorb the
+    loss: SPINS before and after a 50 ms pause, and SPINS after fn.  The
+    spins are left out of the result and counted in ``SPIN_COUNTS``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for lead in range(2 * SPINS):
+            torch.cuda._sleep(1000)
+            if lead == SPINS - 1:
+                time.sleep(0.05)
         fn()
+        for _ in range(SPINS):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                    for e in prof.events() if e.device_type == DeviceType.CUDA)
+    work = [(start, name, t) for start, name, t in events if "spin_kernel" not in name]
+    first = work[0][0] if work else float("inf")
+    SPIN_COUNTS["sessions"] += 1
+    for start, name, _ in events:
+        if "spin_kernel" in name:
+            SPIN_COUNTS["lead" if start < first else "trail"] += 1
+    return [(name, t) for _, name, t in work]
 
 
 def _device_ms(fn, iters: int) -> float | None:
-    """Device time per call: the profiler's device activity over ``iters``
-    calls, divided by ``iters``; host overhead excluded.  None when the
-    profiler records no device time."""
+    """Device time per call from the profiler (see :func:`_profiled`)."""
+    return _profiled(fn, iters)["ms"]
+
+
+def _profiled(fn, iters: int) -> dict:
+    """The profiler's reading of ``iters`` calls of fn after 10 warm-up calls:
+    ``ms``, the device time of one call, host overhead excluded (None when the
+    profiler records no device time); ``recorded``, the device activities it
+    recorded; ``expected``, ``iters`` times the activities of one call profiled
+    alone; ``each_us``, the durations of the recorded activities.  Where it
+    recorded fewer than expected, ``ms`` is the mean over the calls it recorded,
+    so a lost activity does not count as a call that took no time."""
     for _ in range(10):
         fn()
+    expected = iters * len(_device_events(fn))
 
     def run():
         for _ in range(iters):
             fn()
 
-    us = sum(t for _, t in _device_events(run))
-    return us / iters / 1e3 if us > 0 else None
+    each = [t for _, t in _device_events(run)]
+    calls = iters * min(1.0, len(each) / expected) if expected else iters
+    ms = sum(each) / calls / 1e3 if sum(each) > 0 else None
+    return {"ms": ms, "recorded": len(each), "expected": expected, "each_us": each}
 
 
 def _category(name: str) -> str:
@@ -704,6 +1028,8 @@ def _category(name: str) -> str:
         return "flash_attention kernel"
     if "rmsnorm_kernel" in name:
         return "rmsnorm kernel"
+    if "window_stats_kernel" in name or "buffer_stats_kernel" in name:
+        return "gate_window kernels"
     if any(w in name.lower() for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")):
         return "matmul (cuBLAS)"
     return "other (elementwise, copies, softmax, argmax)"
@@ -729,19 +1055,45 @@ def _breakdown(phase: str, events, wall_ms: float) -> None:
 
 def _timed(name, source, replaces, shape, kernel, plain, library, n_bytes, n_ops, op_type,
            iters):
+    """One kernel's timing row: device time per call from the profiler for
+    the kernel, its plain version and the library call, CUDA-event time per
+    call beside each, and the bound.  Anything the profiler did not record
+    as it should is flagged in ``notes`` and on the ``[timings]`` line."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_OPS_PER_S[op_type] * 1e3
+    bound = max(t_bytes, t_ops)
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": None, "max_abs_err": None}
+    notes = []
     for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
-        row[key] = _device_ms(fn, iters)
-        row[key.replace("ms", "call_ms")] = _cuda_ms(fn, iters)
-    if row["ms"] is None:  # no device time from the profiler: fall back to events
-        for key in ("ms", "plain_ms", "library_ms"):
-            row[key] = row[key.replace("ms", "call_ms")]
+        call_key = key.replace("ms", "call_ms")
+        row[key] = row[call_key] = None
+        if fn is None:
+            continue
+        row[call_key] = _cuda_ms(fn, iters)
+        prof = _profiled(fn, iters)
+        row[key] = prof["ms"]
+        if prof["ms"] is None:
+            notes.append(f"{key}: the profiler recorded no device time; CUDA events per call")
+            row[key] = row[call_key]
+        elif prof["recorded"] != prof["expected"]:
+            notes.append(f"{key}: the profiler recorded {prof['recorded']} of "
+                         f"{prof['expected']} device activities over {iters} calls; "
+                         f"mean over the recorded calls")
+        if key == "ms":
+            each = prof["each_us"]
+            row["profiler"] = {k: prof[k] for k in ("recorded", "expected")}
+            if each:
+                row["profiler"].update(activity_us_min=min(each), activity_us_max=max(each),
+                                       activity_us_median=statistics.median(each))
+    if row["ms"] < bound:
+        notes.append(f"ms: the kernel's {row['ms']:.5f} ms is below its {bound:.5f} ms bound")
+    for note in notes:
+        say("timings", f"FLAG {name}: {note} (profiler {row.get('profiler')})")
     row.update({
-        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_ms": bound, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "timing": "profiler device time" if row["ms"] != row["call_ms"] else "cuda events",
+        "notes": notes,
         "shape": list(shape), "bytes": n_bytes, "ops": n_ops,
     })
     return row

@@ -160,9 +160,10 @@ class GradientCode:
         """Decodability from a bool[n] survivor mask (load-only fast path)."""
         return int(survivors.sum()) >= self.n - self.s
 
-    def can_decode_mask_batch(self, survivors: np.ndarray) -> np.ndarray:
+    def can_decode_mask_batch(self, survivors):
         """Batched ``can_decode_mask``: ``(..., n)`` bool -> ``(...,)``
-        bool (lockstep kernels, ``core.kernel``)."""
+        bool, for a numpy array or a torch tensor on any device (the
+        lockstep kernels, ``core.kernel``)."""
         return survivors.sum(axis=-1) >= self.n - self.s
 
     @property
@@ -238,9 +239,10 @@ class RepGradientCode:
             survivors.reshape(self.num_groups, self.s + 1).any(axis=1).all()
         )
 
-    def can_decode_mask_batch(self, survivors: np.ndarray) -> np.ndarray:
+    def can_decode_mask_batch(self, survivors):
         """Batched ``can_decode_mask``: one survivor per replication
-        group, vectorized over any leading axes."""
+        group, vectorized over any leading axes of a numpy array or a
+        torch tensor."""
         shaped = survivors.reshape(
             survivors.shape[:-1] + (self.num_groups, self.s + 1)
         )

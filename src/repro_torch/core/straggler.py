@@ -1,19 +1,18 @@
-"""Straggler models (paper §2.1) and sources: the part the numpy gate uses.
+"""Straggler models (paper §2.1) and sources.
 
-Trimmed copy of ``src/repro/core/straggler.py`` (numpy only):
+Port of ``src/repro/core/straggler.py`` without the cluster models, the trace
+library and its fitting (ROADMAP.md):
 
 * the window helpers, the models ``StragglerModel``, ``PerRoundModel``,
   ``BurstyModel``, ``ArbitraryModel``, ``MixtureModel``,
   ``RepCoverageModel`` and ``WindowwiseOr``;
-* ``ConformanceGate``, the Remark-2.3 wait-out gate the trainers run;
+* ``ConformanceGate``, the numpy Remark-2.3 wait-out gate the trainers run;
 * ``GilbertElliotSource``, with the reference's RNG draw order.
 
-The JAX package routes its batched window statistics through the Pallas
-``gate_window`` kernels when it runs on JAX arrays; that route belongs to
-the simulator's device path, which is not ported yet, and so are the cluster
-models, the trace library and its fitting (ROADMAP.md).  The batched
-methods (``*_batch``) serve that lockstep engine; their docstrings describe
-it as the JAX package has it.
+The models' batched hooks (``*_batch``) serve the lockstep gate
+(``core.kernel.GateKernel``) on torch tensors, on the CPU or on the card.
+Their window statistics go through ``kernels.gate_window``: the plain
+version for a CPU tensor, the CUDA kernels for a tensor on the card.
 
 Deterministic sliding-window models used for code design:
 
@@ -38,9 +37,15 @@ window touching the new round.
 
 from __future__ import annotations
 
+import functools
+import math
+import operator
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from repro_torch.kernels.gate_window import ops as gate_window
 
 __all__ = [
     "BurstyModel",
@@ -80,8 +85,8 @@ def _window_sum(pat: np.ndarray, W: int) -> np.ndarray:
 
 
 def _spatial_min_drops(
-    buf: np.ndarray, cand: np.ndarray, order: np.ndarray, lam: int
-) -> np.ndarray:
+    buf: torch.Tensor, cand: torch.Tensor, order: torch.Tensor, lam: int
+) -> torch.Tensor:
     """Minimal k (dropping the k first candidates in ``order``) that
     brings the window's distinct-straggler count to <= ``lam``.
 
@@ -95,23 +100,24 @@ def _spatial_min_drops(
     """
     n = cand.shape[1]
     if buf.shape[1]:
-        bufact = buf.any(axis=1)
+        bufact = buf.any(dim=1)
         newc = cand & ~bufact
-        m0 = bufact.sum(axis=1)
+        m0 = bufact.sum(dim=1)
     else:
         newc = cand
         m0 = 0
-    S = newc.sum(axis=1)
+    S = newc.sum(dim=1)
     dn = S + m0 - lam                      # drops needed among newc
-    cum = np.cumsum(np.take_along_axis(newc, order, axis=1), axis=1)
-    ks = (cum >= np.maximum(dn, 1)[:, None]).argmax(axis=1) + 1
-    out = np.where(dn <= 0, 0, ks)
-    return np.where(dn > S, n + 1, out)
+    cum = torch.cumsum(torch.gather(newc, 1, order), dim=1)
+    # first k whose prefix holds enough (argmax of a bool needs an int cast)
+    ks = (cum >= dn.clamp_min(1)[:, None]).to(torch.uint8).argmax(dim=1) + 1
+    out = torch.where(dn <= 0, 0, ks)
+    return torch.where(dn > S, n + 1, out)
 
 
-def _must_drop_min(md: np.ndarray, rank: np.ndarray) -> np.ndarray:
+def _must_drop_min(md: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
     """Minimal k whose drop prefix covers every must-drop worker."""
-    return np.where(md, rank, -1).max(axis=1, initial=-1) + 1
+    return torch.where(md, rank, -1).amax(dim=1) + 1
 
 
 def _prefix_upto_costliest(md, cand, cost):
@@ -119,46 +125,16 @@ def _prefix_upto_costliest(md, cand, cost):
     stable ascending-cost greedy order (cost ties break on the smaller
     index, so the costliest must-drop is (max cost, then max index)
     over ``md``).  Empty where ``md`` is empty."""
-    idx = np.arange(cand.shape[1])[None, :]
-    cstar = np.where(md, cost, -np.inf).max(axis=1)
+    idx = torch.arange(cand.shape[1], device=cand.device)[None, :]
+    cstar = torch.where(md, cost, -math.inf).amax(dim=1)
     at_star = cost == cstar[:, None]
-    istar = np.where(md & at_star, idx, -1).max(axis=1)
+    istar = torch.where(md & at_star, idx, -1).amax(dim=1)
     return cand & (
         (cost < cstar[:, None]) | (at_star & (idx <= istar[:, None]))
     )
 
 
-def _any_rows(win):
-    """``win.any(axis=1)`` unrolled over the (tiny, static) round axis.
-
-    XLA CPU lowers middle-axis reductions of (cells, W, n) buffers to a
-    strided loop an order of magnitude slower than the equivalent
-    unrolled elementwise ops; W is a model window (<= a few rounds), so
-    unrolling is free.  Matches numpy semantics exactly.
-    """
-    if win.shape[1] == 0:
-        return np.zeros(
-            (win.shape[0], win.shape[2]), dtype=bool
-        )
-    out = win[:, 0]
-    for r in range(1, win.shape[1]):
-        out = out | win[:, r]
-    return out
-
-
-def _sum_rows(win):
-    """``win.sum(axis=1)`` unrolled over the static round axis (see
-    :func:`_any_rows`); bool input sums to integer counts (the
-    backend's default int width)."""
-    if win.shape[1] == 0:
-        return np.zeros((win.shape[0], win.shape[2]), dtype=int)
-    out = win[:, 0] * 1
-    for r in range(1, win.shape[1]):
-        out = out + win[:, r]
-    return out
-
-
-def _window_stats(win, B: int):
+def _window_stats(win: torch.Tensor, B: int):
     """Fused per-cell suffix-window reductions for the batched gate.
 
     ``win``: (cells, T, n) bool trailing windows.  Returns
@@ -169,20 +145,16 @@ def _window_stats(win, B: int):
     straggle pair >= ``B`` rounds apart (pass ``B >= T`` to skip).
 
     These four statistics are exactly what the windowed models'
-    ``suffix_ok_batch`` verdicts reduce to.
+    ``suffix_ok_batch`` verdicts reduce to.  They come from
+    ``kernels.gate_window``: the plain version for a CPU tensor, the CUDA
+    kernel for a tensor on the card, at every ``n``.
     """
-    distinct = _any_rows(win).sum(axis=1)
-    worker_max = _sum_rows(win).max(axis=1, initial=0)
-    round_max = win.sum(axis=2).max(axis=1, initial=0)
-    pair_bad = np.zeros(win.shape[0], dtype=bool)
-    for d in range(B, win.shape[1]):
-        pair_bad = pair_bad | (win[:, :-d] & win[:, d:]).any(axis=(1, 2))
-    return distinct, worker_max, round_max, pair_bad
+    return gate_window.window_stats(win, B)
 
 
-def _buffer_stats(buf, B: int):
+def _buffer_stats(buf: torch.Tensor, B: int):
     """Fixed per-round statistics of a committed window buffer
-    ``(cells, kh, n)``, computed once per round by the staged gate's
+    ``(cells, kh, n)``, computed once per round by the gate's
     specialized admission closures (``admit_fn_batch``):
 
     ``bufact[c, w]`` — worker straggles somewhere in the buffer;
@@ -190,34 +162,27 @@ def _buffer_stats(buf, B: int):
     a straggle in rows ``0..kh-B`` (would pair-violate, >= ``B``
     apart, with the incoming candidate row at offset ``kh``);
     ``pair_bad[c]`` — a >= ``B``-apart pair already inside the buffer.
+    Routed like :func:`_window_stats` (``kernels.gate_window``).
     """
-    kh = buf.shape[1]
-    bufact = _any_rows(buf)
-    bufcnt = _sum_rows(buf)
-    if kh >= B:
-        mdmap = _any_rows(buf[:, : kh - B + 1])
-    else:
-        mdmap = np.zeros_like(bufact)
-    pair_bad = np.zeros(buf.shape[0], dtype=bool)
-    for d in range(B, kh):
-        pair_bad = pair_bad | (buf[:, :-d] & buf[:, d:]).any(axis=(1, 2))
-    return bufact, bufcnt, mdmap, pair_bad
+    return gate_window.buffer_stats(buf, B)
 
 
 class StragglerModel:
-    """Interface: validate a full pattern or check incremental conformance."""
+    """Interface: validate a full pattern or check incremental conformance.
+
+    The ``*_batch`` hooks are the lockstep gate's (``core.kernel.GateKernel``):
+    they take torch tensors with a leading cells axis, on the CPU or the card,
+    and never read them back to the host.
+    """
 
     #: True when the model's verdict is unchanged by dropping all-clear
     #: worker COLUMNS from the pattern (anything counting only straggler
-    #: occurrences).  Lets the batched gate check only the active
-    #: columns.  False for models tied to worker identity/layout
+    #: occurrences).  False for models tied to worker identity/layout
     #: (e.g. replication-group coverage).
     column_reducible: bool = False
 
     #: Closed-form minimal-drop solver for the batched wait-out gate,
-    #: or None.  When every gate member defines it, the gate computes
-    #: each cell's greedy wait-out in O(1) array passes instead of
-    #: re-checking candidate variants.  Signature:
+    #: or None.  Signature:
     #: ``min_drops_batch(buf, cand, rank, order) -> (rows,) int``
     #: where ``buf`` is this model's trailing committed window rows
     #: ``(rows, kh, n)``, ``cand``/``rank``/``order`` describe the
@@ -225,7 +190,10 @@ class StragglerModel:
     #: smallest k such that dropping the k cheapest candidates makes
     #: the window admissible (``n + 1`` when impossible).  Soundness
     #: requires admissibility to be MONOTONE in the drop prefix, which
-    #: holds for any model closed under removing stragglers.
+    #: holds for any model closed under removing stragglers.  The gate
+    #: runs the selective wait-out only over models that define it (it
+    #: marks the vectorized members); its greedy loop itself calls
+    #: :meth:`admit_fn_batch` and :meth:`drops_lower_bound_fn_batch`.
     min_drops_batch = None
 
     def conforms(self, pattern: np.ndarray) -> bool:
@@ -236,32 +204,26 @@ class StragglerModel:
         drops, specialized (like :meth:`admit_fn_batch`) to the round's
         fixed buffer and cost row: returns ``f(cand) -> (cells,) int``
         (``n + 1``-style sentinels where the member can never admit).
-        The staged gate takes the min over alive members and retires
-        that many cheapest candidates per ``while_loop`` iteration
-        without re-checking after each one — sound because no member
-        can admit before its own bound is dropped, and drops always
-        proceed in cost order.  The default (0) is always valid, just
-        slow when wait-outs run deep.
+        The gate takes the min over alive members and retires that many
+        cheapest candidates per greedy iteration without re-checking
+        after each one — sound because no member can admit before its
+        own bound is dropped, and drops always proceed in cost order.
+        The default (0) is always valid, just slow when wait-outs run
+        deep.
         """
-        return lambda cand: np.zeros(cand.shape[0], dtype=np.int64)
+        return lambda cand: torch.zeros(cand.shape[0], dtype=torch.int64, device=cand.device)
 
     def admit_fn_batch(self, buf):
         """Admission specialized to a FIXED committed buffer: returns
         ``f(cand) -> (cells,) bool`` verdicts for the window
-        ``buf + cand``.  The staged gate builds one closure per member
-        per round and calls it once per greedy iteration, so overrides
+        ``buf + cand``.  The gate builds one closure per member per
+        round and calls it once per greedy iteration, so overrides
         precompute every buffer-only quantity up front; this default
         re-runs the full suffix check per call.
         """
         if buf.shape[1] == 0:
             return lambda cand: self.suffix_ok_batch(cand[:, None])
-
-        def f(cand):
-            return self.suffix_ok_batch(
-                np.concatenate([buf, cand[:, None]], axis=1)
-            )
-
-        return f
+        return lambda cand: self.suffix_ok_batch(torch.cat([buf, cand[:, None]], dim=1))
 
     def suffix_ok(self, win: np.ndarray) -> bool:
         """Is the trailing window ``win`` (bool[<=W, n], last row = the
@@ -273,17 +235,21 @@ class StragglerModel:
         """
         return self.conforms(win)
 
-    def suffix_ok_batch(self, win: np.ndarray) -> np.ndarray:
-        """Lockstep variant of ``suffix_ok``: ``win`` is ``(cells, T, n)``
-        (one trailing window per grid cell, last row = each cell's
-        candidate round); returns a ``(cells,)`` bool array.
+    def suffix_ok_batch(self, win):
+        """Lockstep variant of ``suffix_ok``: ``win`` is a ``(cells, T, n)``
+        bool tensor (one trailing window per grid cell, last row = each
+        cell's candidate round); returns a ``(cells,)`` bool tensor.
 
-        The fallback loops over cells; every model in this module
-        overrides it with a single vectorized pass so the batched
-        ``ConformanceGate`` (``core.kernel.GateKernel``) costs one array
-        check per member per round regardless of the grid size.
+        Every model in this module overrides it with one vectorized pass,
+        so the batched gate costs one check per member per round regardless
+        of the grid size.  A model without one raises here instead of being
+        checked cell by cell on the host.
         """
-        return np.array([self.suffix_ok(w) for w in win], dtype=bool)
+        raise NotImplementedError(
+            f"{type(self).__name__} has no vectorized suffix_ok_batch: the lockstep gate over "
+            "such a model waits for a later slice of the port (ROADMAP.md: the lockstep "
+            "engine's open specs)"
+        )
 
     def admits_round(self, history: np.ndarray, candidate: np.ndarray) -> bool:
         """Would appending ``candidate`` (bool[n]) keep the pattern valid?
@@ -315,32 +281,31 @@ class PerRoundModel(StragglerModel):
     def conforms(self, pattern: np.ndarray) -> bool:
         return bool((pattern.sum(axis=1) <= self.s).all())
 
-    def suffix_ok_batch(self, win: np.ndarray) -> np.ndarray:
-        return (win.sum(axis=2) <= self.s).all(axis=1)
+    def suffix_ok_batch(self, win):
+        _, _, round_max, _ = _window_stats(win, win.shape[1])
+        return round_max <= self.s
 
-    def min_drops_batch(self, buf, cand, rank, order) -> np.ndarray:
-        k = np.maximum(cand.sum(axis=1) - self.s, 0)
+    def min_drops_batch(self, buf, cand, rank, order) -> torch.Tensor:
+        k = (cand.sum(dim=1) - self.s).clamp_min(0)
         if buf.shape[1]:
             # inside a multi-round window (WindowwiseOr member): the
             # committed rows must conform too — drops cannot fix them
-            hist_ok = (buf.sum(axis=2) <= self.s).all(axis=1)
-            k = np.where(hist_ok, k, cand.shape[1] + 1)
+            hist_ok = (buf.sum(dim=2) <= self.s).all(dim=1)
+            k = torch.where(hist_ok, k, cand.shape[1] + 1)
         return k
 
     def admit_fn_batch(self, buf):
         if buf.shape[1] == 0:
-            return lambda cand: cand.sum(axis=1) <= self.s
-        hist_ok = (buf.sum(axis=2) <= self.s).all(axis=1)
-        return lambda cand: hist_ok & (cand.sum(axis=1) <= self.s)
+            return lambda cand: cand.sum(dim=1) <= self.s
+        hist_ok = (buf.sum(dim=2) <= self.s).all(dim=1)
+        return lambda cand: hist_ok & (cand.sum(dim=1) <= self.s)
 
     def drops_lower_bound_fn_batch(self, buf, cost):
         s, sent = self.s, cost.shape[1] + 1
         if buf.shape[1] == 0:
-            return lambda cand: np.maximum(cand.sum(axis=1) - s, 0)
-        hist_ok = (buf.sum(axis=2) <= s).all(axis=1)
-        return lambda cand: np.where(
-            hist_ok, np.maximum(cand.sum(axis=1) - s, 0), sent
-        )
+            return lambda cand: (cand.sum(dim=1) - s).clamp_min(0)
+        hist_ok = (buf.sum(dim=2) <= s).all(dim=1)
+        return lambda cand: torch.where(hist_ok, (cand.sum(dim=1) - s).clamp_min(0), sent)
 
     @property
     def window(self) -> int:
@@ -386,70 +351,59 @@ class BurstyModel(StragglerModel):
         # inactive workers give last - first = -1 - T < B automatically
         return bool((last - first < self.B).all())
 
-    def suffix_ok_batch(self, win: np.ndarray) -> np.ndarray:
-        ok = win.any(axis=1).sum(axis=1) <= self.lam
+    def suffix_ok_batch(self, win):
         # temporal: a violation is exactly a same-worker straggle pair
-        # >= B rounds apart (cheap bool ops; mirrors ``conforms``)
-        for d in range(self.B, win.shape[1]):
-            ok &= ~(win[:, :-d, :] & win[:, d:, :]).any(axis=(1, 2))
-        return ok
+        # >= B rounds apart (mirrors ``conforms``)
+        distinct, _, _, pair_bad = _window_stats(win, self.B)
+        return (distinct <= self.lam) & ~pair_bad
 
-    def min_drops_batch(self, buf, cand, rank, order) -> np.ndarray:
+    def min_drops_batch(self, buf, cand, rank, order) -> torch.Tensor:
         k = _spatial_min_drops(buf, cand, order, self.lam)
         kh = buf.shape[1]
         if kh >= self.B:
             # candidates straggling >= B rounds before the new row can
             # only be fixed by dropping them (window rows 0..kh-B)
-            md = cand & buf[:, : kh - self.B + 1].any(axis=1)
-            k = np.maximum(k, _must_drop_min(md, rank))
+            md = cand & buf[:, : kh - self.B + 1].any(dim=1)
+            k = torch.maximum(k, _must_drop_min(md, rank))
             # a straggle pair >= B apart WITHIN the committed rows can
             # never be fixed by dropping candidates.  Inside a
             # WindowwiseOr the window may have been admitted through
             # another arm, so this does happen (top-level members are
             # alive-tracked and never see it).
-            bad = np.zeros(cand.shape[0], dtype=bool)
-            for d in range(self.B, kh):
-                bad = bad | (buf[:, :-d] & buf[:, d:]).any(axis=(1, 2))
-            k = np.where(bad, cand.shape[1] + 1, k)
+            _, _, _, pair_bad = _buffer_stats(buf, self.B)
+            k = torch.where(pair_bad, cand.shape[1] + 1, k)
         return k
 
     def admit_fn_batch(self, buf):
         if buf.shape[1] == 0:
-            return lambda cand: cand.sum(axis=1) <= self.lam
+            return lambda cand: cand.sum(dim=1) <= self.lam
         bufact, _, mdmap, pair_bad = _buffer_stats(buf, self.B)
-        base = bufact.sum(axis=1)
+        base = bufact.sum(dim=1)
         ok_fixed = ~pair_bad
 
         def f(cand):
-            distinct = base + (cand & ~bufact).sum(axis=1)
-            return (
-                (distinct <= self.lam)
-                & ok_fixed
-                & ~(cand & mdmap).any(axis=1)
-            )
+            distinct = base + (cand & ~bufact).sum(dim=1)
+            return (distinct <= self.lam) & ok_fixed & ~(cand & mdmap).any(dim=1)
 
         return f
 
     def drops_lower_bound_fn_batch(self, buf, cost):
         lam, sent = self.lam, cost.shape[1] + 1
         if buf.shape[1] == 0:
-            return lambda cand: np.maximum(cand.sum(axis=1) - lam, 0)
+            return lambda cand: (cand.sum(dim=1) - lam).clamp_min(0)
         bufact, _, mdmap, pair_bad = _buffer_stats(buf, self.B)
-        base = bufact.sum(axis=1)
+        base = bufact.sum(dim=1)
 
         def f(cand):
             # spatial shortfall: each drop removes at most one distinct
             # straggler from the window
-            distinct = base + (cand & ~bufact).sum(axis=1)
-            k = np.maximum(distinct - lam, 0)
+            distinct = base + (cand & ~bufact).sum(dim=1)
+            k = (distinct - lam).clamp_min(0)
             # every candidate at-or-before the costliest must-drop
             # worker is dropped before this member can admit
             md = cand & mdmap
-            k = np.maximum(
-                k,
-                (cand & _prefix_upto_costliest(md, cand, cost)).sum(axis=1),
-            )
-            return np.where(pair_bad, sent, k)
+            k = torch.maximum(k, (cand & _prefix_upto_costliest(md, cand, cost)).sum(dim=1))
+            return torch.where(pair_bad, sent, k)
 
         return f
 
@@ -479,44 +433,37 @@ class ArbitraryModel(StragglerModel):
             return False
         return int(win.sum(axis=0).max(initial=0)) <= self.N
 
-    def suffix_ok_batch(self, win: np.ndarray) -> np.ndarray:
-        spatial = win.any(axis=1).sum(axis=1) <= self.lam
-        return spatial & (win.sum(axis=1).max(axis=1, initial=0) <= self.N)
+    def suffix_ok_batch(self, win):
+        distinct, worker_max, _, _ = _window_stats(win, win.shape[1])
+        return (distinct <= self.lam) & (worker_max <= self.N)
 
-    def min_drops_batch(self, buf, cand, rank, order) -> np.ndarray:
+    def min_drops_batch(self, buf, cand, rank, order) -> torch.Tensor:
         k = _spatial_min_drops(buf, cand, order, self.lam)
         # candidates already at N straggling rounds in the window must
         # be dropped (with an empty buffer this still catches N == 0)
-        bufcnt = buf.sum(axis=1) if buf.shape[1] else 0
+        bufcnt = buf.sum(dim=1) if buf.shape[1] else 0
         md = cand & (bufcnt >= self.N)
-        k = np.maximum(k, _must_drop_min(md, rank))
+        k = torch.maximum(k, _must_drop_min(md, rank))
         if buf.shape[1]:
             # a worker already PAST N in the committed rows cannot be
             # fixed by dropping candidates (reachable only inside a
             # WindowwiseOr; top-level members are alive-tracked)
-            bad = (bufcnt > self.N).any(axis=1)
-            k = np.where(bad, cand.shape[1] + 1, k)
+            k = torch.where((bufcnt > self.N).any(dim=1), cand.shape[1] + 1, k)
         return k
 
     def admit_fn_batch(self, buf):
         if buf.shape[1] == 0:
             if self.N >= 1:
-                return lambda cand: cand.sum(axis=1) <= self.lam
-            return lambda cand: (
-                (cand.sum(axis=1) <= self.lam) & ~cand.any(axis=1)
-            )
+                return lambda cand: cand.sum(dim=1) <= self.lam
+            return lambda cand: (cand.sum(dim=1) <= self.lam) & ~cand.any(dim=1)
         bufact, bufcnt, _, _ = _buffer_stats(buf, buf.shape[1] + 1)
-        base = bufact.sum(axis=1)
+        base = bufact.sum(dim=1)
         md = bufcnt >= self.N
-        ok_fixed = bufcnt.max(axis=1, initial=0) <= self.N
+        ok_fixed = bufcnt.amax(dim=1) <= self.N
 
         def f(cand):
-            distinct = base + (cand & ~bufact).sum(axis=1)
-            return (
-                (distinct <= self.lam)
-                & ok_fixed
-                & ~(cand & md).any(axis=1)
-            )
+            distinct = base + (cand & ~bufact).sum(dim=1)
+            return (distinct <= self.lam) & ok_fixed & ~(cand & md).any(dim=1)
 
         return f
 
@@ -525,22 +472,19 @@ class ArbitraryModel(StragglerModel):
         if buf.shape[1] == 0:
             if N == 0:
                 # every candidate must go
-                return lambda cand: cand.sum(axis=1)
-            return lambda cand: np.maximum(cand.sum(axis=1) - lam, 0)
+                return lambda cand: cand.sum(dim=1)
+            return lambda cand: (cand.sum(dim=1) - lam).clamp_min(0)
         bufact, bufcnt, _, _ = _buffer_stats(buf, buf.shape[1] + 1)
-        base = bufact.sum(axis=1)
+        base = bufact.sum(dim=1)
         mdmap = bufcnt >= N
-        bad = (bufcnt > N).any(axis=1)
+        bad = (bufcnt > N).any(dim=1)
 
         def f(cand):
-            distinct = base + (cand & ~bufact).sum(axis=1)
-            k = np.maximum(distinct - lam, 0)
+            distinct = base + (cand & ~bufact).sum(dim=1)
+            k = (distinct - lam).clamp_min(0)
             md = cand & mdmap
-            k = np.maximum(
-                k,
-                (cand & _prefix_upto_costliest(md, cand, cost)).sum(axis=1),
-            )
-            return np.where(bad, sent, k)
+            k = torch.maximum(k, (cand & _prefix_upto_costliest(md, cand, cost)).sum(dim=1))
+            return torch.where(bad, sent, k)
 
         return f
 
@@ -565,7 +509,7 @@ class MixtureModel(StragglerModel):
     def conforms(self, pattern: np.ndarray) -> bool:
         return any(m.conforms(pattern) for m in self.members)
 
-    def suffix_ok_batch(self, win: np.ndarray) -> np.ndarray:
+    def suffix_ok_batch(self, win):
         raise TypeError(
             "MixtureModel admission is stateful; use ConformanceGate "
             "(or the batched GateKernel, which tracks members separately)"
@@ -595,30 +539,28 @@ class RepCoverageModel(StragglerModel):
         groups = pattern.reshape(pattern.shape[0], self.n // g, g)
         return bool((~groups.all(axis=2)).all())
 
-    def suffix_ok_batch(self, win: np.ndarray) -> np.ndarray:
+    def suffix_ok_batch(self, win):
         g = self.s + 1
         groups = win.reshape(win.shape[0], win.shape[1], self.n // g, g)
-        return (~groups.all(axis=3)).all(axis=(1, 2))
+        return ~groups.all(dim=3).any(dim=2).any(dim=1)
 
-    def min_drops_batch(self, buf, cand, rank, order) -> np.ndarray:
+    def min_drops_batch(self, buf, cand, rank, order) -> torch.Tensor:
         # a fully-straggling replication group is fixed by dropping its
         # cheapest member, i.e. once the drop prefix reaches the
         # group's minimum rank
         g = self.s + 1
         rows = cand.shape[0]
         candg = cand.reshape(rows, self.n // g, g)
-        full = candg.all(axis=2)
-        minr = np.where(candg, rank.reshape(rows, self.n // g, g), self.n).min(
-            axis=2
-        )
-        return np.where(full, minr + 1, 0).max(axis=1, initial=0)
+        full = candg.all(dim=2)
+        minr = torch.where(candg, rank.reshape(rows, self.n // g, g), self.n).amin(dim=2)
+        return torch.where(full, minr + 1, 0).amax(dim=1)
 
     def admit_fn_batch(self, buf):
         g = self.s + 1
 
         def f(cand):
             groups = cand.reshape(cand.shape[0], self.n // g, g)
-            return ~groups.all(axis=2).any(axis=1)
+            return ~groups.all(dim=2).any(dim=1)
 
         return f
 
@@ -628,7 +570,7 @@ class RepCoverageModel(StragglerModel):
 
         def f(cand):
             groups = cand.reshape(cand.shape[0], self.n // g, g)
-            return groups.all(axis=2).sum(axis=1)
+            return groups.all(dim=2).sum(dim=1)
 
         return f
 
@@ -669,48 +611,26 @@ class WindowwiseOr(StragglerModel):
     def suffix_ok(self, win: np.ndarray) -> bool:
         return any(m.conforms(win) for m in self.members)
 
-    def suffix_ok_batch(self, win: np.ndarray) -> np.ndarray:
+    def suffix_ok_batch(self, win):
         # member suffix_ok == conforms on a single (<= W)-round window
         # for every model in this module, so the OR vectorizes directly
-        out = np.zeros(win.shape[0], dtype=bool)
-        for m in self.members:
-            out = out | m.suffix_ok_batch(win)
-        return out
+        return functools.reduce(operator.or_, (m.suffix_ok_batch(win) for m in self.members))
 
-    def min_drops_batch(self, buf, cand, rank, order) -> np.ndarray:
+    def min_drops_batch(self, buf, cand, rank, order) -> torch.Tensor:
         # the window admits when ANY member does: minimum over members
         # (each sees the full Or-window rows)
-        out = None
-        for m in self.members:
-            km = m.min_drops_batch(buf, cand, rank, order)
-            out = km if out is None else np.minimum(out, km)
-        return out
+        return functools.reduce(
+            torch.minimum, (m.min_drops_batch(buf, cand, rank, order) for m in self.members))
 
     def drops_lower_bound_fn_batch(self, buf, cost):
         # admits via ANY member: the true minimum is the min over
         # member minima, so the bound is the min over member bounds
         fns = [m.drops_lower_bound_fn_batch(buf, cost) for m in self.members]
-
-        def f(cand):
-            out = None
-            for g in fns:
-                km = g(cand)
-                out = km if out is None else np.minimum(out, km)
-            return out
-
-        return f
+        return lambda cand: functools.reduce(torch.minimum, (g(cand) for g in fns))
 
     def admit_fn_batch(self, buf):
         fns = [m.admit_fn_batch(buf) for m in self.members]
-
-        def f(cand):
-            out = None
-            for g in fns:
-                r = g(cand)
-                out = r if out is None else out | r
-            return out
-
-        return f
+        return lambda cand: functools.reduce(operator.or_, (g(cand) for g in fns))
 
     @property
     def window(self) -> int:

@@ -16,6 +16,9 @@ Kernels:
   * ``rmsnorm``         — fused RMSNorm forward and backward (bandwidth-bound).
   * ``flash_attention`` — blocked GQA attention forward and backward with
     causal, sliding-window and valid-key masks.
+  * ``gate_window``     — the wait-out gate's per-cell window statistics
+    (integer-only, launch-bound at the gate's sizes): ``window_stats`` for the
+    all-or-nothing admission, ``buffer_stats`` for the selective one.
 """
 
-from . import flash_attention, gc_coding, rmsnorm  # noqa: F401
+from . import flash_attention, gate_window, gc_coding, rmsnorm  # noqa: F401

@@ -6,7 +6,7 @@ from .coded import (
     make_serve_step,
     make_train_step,
 )
-from .driver import CodedTrainingDriver, MLPModel, VectorizedCodedTrainer
+from .driver import CodedTrainingDriver, MLPModel, VectorizedCodedTrainer, run_adaptive
 
 __all__ = [
     "CodedTrainingDriver",
@@ -18,4 +18,5 @@ __all__ = [
     "make_coded_train_step",
     "make_serve_step",
     "make_train_step",
+    "run_adaptive",
 ]

@@ -22,9 +22,10 @@ schemes (and with the JAX package) while the training itself is genuine.
 * :class:`VectorizedCodedTrainer` — the production loop: each decodable
   job is ONE ``make_coded_train_step`` call on the (n, slots) replicated
   batch view, whose weighted loss is the decoder.
-
-The JAX package's ``run_adaptive`` (probe uncoded, then select parameters)
-needs the simulator's ``select_parameters`` and waits for that slice.
+* :func:`run_adaptive` — App. K.2 / Fig. 18: train uncoded for a probe
+  phase, select coding parameters from the observed delays with the
+  lockstep simulator (``core.select_parameters``, on the device), then
+  train coded with the same model states.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.schemes import MSGCScheme, Scheme
+from repro_torch.core.schemes import MSGCScheme, Scheme, make_scheme
+from repro_torch.core.simulator import select_parameters
 from repro_torch.core.straggler import ConformanceGate
 from repro_torch.data import (
     chunk_boundaries,
@@ -262,6 +264,57 @@ class CodedTrainingDriver:
         """Direct full-batch gradient at the job's snapshot (oracle)."""
         x, y = self._job_batch(job)
         return self._grad_sum(self._snapshots[job], x, y)
+
+
+def run_adaptive(
+    num_models: int,
+    J: int,
+    delays: np.ndarray,
+    *,
+    scheme_name: str = "m-sgc",
+    t_probe: int = 20,
+    batch_size: int = 256,
+    lr: float = 1e-2,
+    mu: float = 1.0,
+    alpha: float = 8.0,
+    seed: int = 0,
+    grid=None,
+    device="cuda",
+):
+    """App. K.2 / Fig. 18: start training UNCODED, after ``t_probe``
+    rounds select coding parameters from the observed delay profile and
+    switch to the coded scheme for the remaining jobs.  Training and the
+    selection's lockstep simulation both run on ``device``.
+
+    Returns (total_clock, probe_clock, selected_params, driver) — model
+    parameters carry over across the switch, so no training progress is
+    lost to the probe phase.
+    """
+    n = delays.shape[1]
+    # phase 1: uncoded probe (records the reference delay profile)
+    probe_sch = make_scheme("uncoded", n, t_probe)
+    drv = CodedTrainingDriver(
+        scheme=probe_sch, num_models=num_models, batch_size=batch_size,
+        lr=lr, mu=mu, alpha=alpha, seed=seed, device=device,
+    )
+    probe_clock = drv.run(t_probe, delays[:t_probe])
+
+    # phase 2: App-J selection on the probe profile
+    cand = select_parameters(
+        scheme_name, n, delays[:t_probe], mu=mu, alpha=alpha, grid=grid, device=device,
+    )
+
+    # phase 3: coded training continues with the SAME model states
+    rest = J - t_probe
+    coded_sch = make_scheme(scheme_name, n, rest, **cand.params)
+    drv2 = CodedTrainingDriver(
+        scheme=coded_sch, num_models=num_models, batch_size=batch_size,
+        lr=lr, mu=mu, alpha=alpha, seed=seed + 1, device=device,
+    )
+    drv2.params = drv.params          # carry over model states
+    drv2.opt = drv.opt
+    coded_clock = drv2.run(rest, delays[t_probe : t_probe + rest + coded_sch.T])
+    return probe_clock + coded_clock, probe_clock, cand.params, drv2
 
 
 @dataclass

@@ -16,6 +16,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import repro_torch.core as tc
 from repro_torch.core import straggler as tst
@@ -113,7 +114,8 @@ def test_window_models_batched_verdicts_equal_the_reference(rc):
          tst.WindowwiseOr((tst.BurstyModel(1, 4, 3), tst.PerRoundModel(1)), 4)),
     ]
     for want, got in pairs:
-        np.testing.assert_array_equal(got.suffix_ok_batch(win), want.suffix_ok_batch(win))
+        np.testing.assert_array_equal(got.suffix_ok_batch(torch.from_numpy(win)).numpy(),
+                                      want.suffix_ok_batch(win))
         for w in win[:16]:
             assert got.conforms(w) == want.conforms(w)
             assert got.suffix_ok(w) == want.suffix_ok(w)

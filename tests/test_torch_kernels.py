@@ -22,6 +22,9 @@ from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gc_coding import ops as gc_ops
 from repro_torch.kernels.gc_coding import ref as gc_ref
 from repro_torch.kernels.gc_coding.gc_coding import coded_combine as gc_kernel
+from repro_torch.kernels.gate_window import gate_window as gw_kernel
+from repro_torch.kernels.gate_window import ops as gw_ops
+from repro_torch.kernels.gate_window import ref as gw_ref
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.kernels.rmsnorm import ref as rn_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm as rn_kernel
@@ -186,6 +189,91 @@ def test_coded_combine_tree_plain_matches_jax_ref():
             _close(_np(got[name]), want[name], 1e-5)
 
 
+# -- gate_window: plain version vs the JAX package (integer-only: exact) ---------
+
+GW_CELLS, GW_N = (1, 5, 37), (7, 33, 130)
+GW_DTYPES = {"window": (torch.int32,) * 3 + (torch.bool,),
+             "buffer": (torch.bool, torch.int32, torch.bool, torch.bool)}
+
+
+def _gw_windows(seed, rows, p=0.3):
+    """Random bool windows over every (cells, n) of the sweep."""
+    rng = np.random.default_rng(seed)
+    return [rng.random((cells, rows, n)) < p for cells in GW_CELLS for n in GW_N]
+
+
+def _gw_equal(got, want, which):
+    assert len(got) == len(want) == 4
+    for g, w, dt in zip(got, want, GW_DTYPES[which]):
+        assert g.dtype == dt and tuple(g.shape) == tuple(np.shape(w))
+        np.testing.assert_array_equal(g.cpu().numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("W", [1, 2, 3, 5])
+@pytest.mark.parametrize("B", [1, 2, 3, "W"])
+def test_window_stats_plain_matches_jax(W, B):
+    """Against the JAX package's own statistics of the same numpy windows."""
+    from repro.core.straggler import _window_stats
+
+    B = W if B == "W" else B
+    for win in _gw_windows(10 * W + B, W):
+        _gw_equal(gw_ops.window_stats(torch.from_numpy(win), B), _window_stats(win, B), "window")
+
+
+@pytest.mark.parametrize("kh", [0, 1, 2, 3])
+@pytest.mark.parametrize("B", [1, 2, 3, "W"])
+def test_buffer_stats_plain_matches_jax(kh, B):
+    from repro.core.straggler import _buffer_stats
+
+    B = kh + 1 if B == "W" else B  # the window is the buffer plus the candidate row
+    for buf in _gw_windows(20 * kh + B, kh):
+        _gw_equal(gw_ops.buffer_stats(torch.from_numpy(buf), B), _buffer_stats(buf, B), "buffer")
+
+
+@pytest.mark.parametrize("which,cells,rows,n,B", [
+    ("window", 1, 1, 7, 1), ("window", 37, 3, 130, 2), ("window", 5, 5, 33, 5),
+    ("buffer", 5, 1, 33, 1), ("buffer", 37, 3, 130, 2), ("buffer", 1, 2, 7, 3),
+])
+def test_gate_window_plain_matches_pallas(which, cells, rows, n, B):
+    """Against the Pallas kernels in interpret mode and their jnp reference."""
+    import jax.numpy as jnp
+    from repro.kernels.gate_window import ops as jops
+    from repro.kernels.gate_window import ref as jref
+
+    win = np.random.default_rng(cells + rows + n).random((cells, rows, n)) < 0.3
+    got = getattr(gw_ops, f"{which}_stats")(torch.from_numpy(win), B)
+    _gw_equal(got, getattr(jops, f"{which}_stats")(jnp.asarray(win), B, interpret=True), which)
+    _gw_equal(got, getattr(jref, f"{which}_stats")(jnp.asarray(win), B), which)
+
+
+def test_gate_window_plain_folds_specs_and_takes_views():
+    """A (specs, cells, rows, n) input folds into cells; a sliced, non-contiguous
+    buffer view (the gate's ``bufs[i][:, w-1-kh:]``) gives its copy's stats."""
+    rng = np.random.default_rng(30)
+    win = torch.from_numpy(rng.random((3, 5, 4, 33)) < 0.3)
+    for which in ("window", "buffer"):
+        fn = getattr(gw_ops, f"{which}_stats")
+        got = fn(win, 2)
+        for s in range(3):
+            for g, w in zip(got, fn(win[s], 2)):
+                assert g.shape[:2] == (3, 5)
+                torch.testing.assert_close(g[s], w)
+    view = win[0][:, 1:]
+    assert not view.is_contiguous()
+    for g, w in zip(gw_ops.buffer_stats(view, 2), gw_ops.buffer_stats(view.contiguous(), 2)):
+        torch.testing.assert_close(g, w)
+
+
+def test_gate_window_plain_counts_calls():
+    win = torch.zeros(2, 3, 8, dtype=torch.bool)
+    before = (gw_ref.window_stats.calls, gw_ref.buffer_stats.calls)
+    gw_ops.window_stats(win, 1)
+    gw_ops.buffer_stats(win, 1)
+    gw_ops.buffer_stats(win[None], 1)
+    assert (gw_ref.window_stats.calls, gw_ref.buffer_stats.calls) == (before[0] + 1,
+                                                                      before[1] + 2)
+
+
 def test_coded_combine_is_gc_decode():
     """The port's own GradientCode and coded combine decode a real (8, 3) encode."""
     code = GradientCode(8, 3, seed=0)
@@ -263,6 +351,19 @@ def test_backward_and_combine_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="no implementation"):
         gc_ops.coded_combine(torch.empty(3, 64, device="meta"), [1.0, 2.0, 3.0])
     assert (gc_kernel.launches, rn_bwd.launches, fa_bwd.launches) == before
+
+
+def test_gate_window_wrappers_refuse_what_they_do_not_take():
+    before = (gw_kernel.window_stats.launches, gw_kernel.buffer_stats.launches)
+    win = torch.zeros(2, 3, 8, dtype=torch.bool)
+    for fn in (gw_kernel.window_stats, gw_kernel.buffer_stats):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(win, 1)
+    with pytest.raises(ValueError, match="no implementation"):
+        gw_ops.window_stats(torch.empty(2, 3, 8, dtype=torch.bool, device="meta"), 1)
+    with pytest.raises(ValueError, match="bool"):
+        gw_ops.buffer_stats(win.int(), 1)
+    assert (gw_kernel.window_stats.launches, gw_kernel.buffer_stats.launches) == before
 
 def test_ops_refuse_devices_without_an_implementation():
     x = torch.empty(4, 64, device="meta")
@@ -409,3 +510,45 @@ def test_attention_bwd_kernel_valid_k(cuda_device):
         for a, bb in zip(got, want):
             torch.testing.assert_close(a, bb, rtol=2e-4, atol=2e-4)
         assert not got[1][:, :, 200:].any() and not got[2][:, :, 200:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [0, 1, 2, 3, 5, 10, 32])
+@pytest.mark.parametrize("B", [1, 2, 3, "rows"])
+def test_gate_window_kernels_match_plain(cuda_device, rows, B):
+    """Both kernels, exact, over the sweep's cells and n (n not a multiple of
+    32, n < 32, one cell), the main path's (64, rows, 256), and B >= rows."""
+    B = max(rows, 1) if B == "rows" else B
+    rng = np.random.default_rng(40 + rows)
+    for cells, n in [(c, n) for c in GW_CELLS for n in GW_N] + [(64, 256), (3000, 40)]:
+        x = torch.from_numpy(rng.random((cells, rows, n)) < 0.3).to(cuda_device)
+        fns = [("buffer", gw_kernel.buffer_stats, gw_ref.buffer_stats)]
+        if rows:
+            fns.append(("window", gw_kernel.window_stats, gw_ref.window_stats))
+        for which, kernel, plain in fns:
+            before = kernel.launches
+            got = getattr(gw_ops, f"{which}_stats")(x, B)
+            assert kernel.launches == before + 1
+            _gw_equal(got, [w.cpu().numpy() for w in plain(x, B)], which)
+
+
+@pytest.mark.cuda
+def test_gate_window_kernels_take_views_and_specs(cuda_device):
+    rng = np.random.default_rng(50)
+    x = torch.from_numpy(rng.random((3, 37, 5, 130)) < 0.3).to(cuda_device)
+    for which in ("window", "buffer"):
+        plain = getattr(gw_ref, f"{which}_stats")
+        kernel = getattr(gw_kernel, f"{which}_stats")
+        for view in (x, x[1][:, 2:], x[:, :, 1:4].transpose(0, 1)[5], x[2, ::2, ::2, 1::3]):
+            before = kernel.launches
+            got = getattr(gw_ops, f"{which}_stats")(view, 2)
+            assert kernel.launches == before + 1
+            _gw_equal(got, [w.cpu().numpy() for w in plain(view, 2)], which)
+
+
+@pytest.mark.cuda
+def test_gate_window_kernels_refuse_wide_windows(cuda_device):
+    x = torch.zeros(2, 33, 8, dtype=torch.bool, device=cuda_device)
+    for fn in (gw_kernel.window_stats, gw_kernel.buffer_stats):
+        with pytest.raises(ValueError, match="32 rows"):
+            fn(x, 1)
