@@ -11,38 +11,49 @@ Phases, one or more printed lines each; any failure exits non-zero:
   5. gc_coding     -- the coded-combine kernel against its plain version;
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
      attention-bwd    at the training shapes, in f32 and bf16;
-  7. slice         -- full-width qwen2-0.5b serving through ``serve()`` (prefill
+  7. ssd_scan      -- the SSD intra-chunk kernel against its plain version:
+                      tests/test_ssd_kernel.py's shapes, a ragged final chunk,
+                      odd Q and head_dim, a strided view, mamba2-1.3b's full
+                      width in f32 and bf16, and a steep decay whose unmasked
+                      exp would overflow;
+  8. slice         -- full-width qwen2-0.5b serving through ``serve()`` (prefill
                       of 8 x 500 prompt tokens, 31 greedy decode steps), with
                       the kernels' launch counts read around that run; then a
                       float32 teacher-forced run through the kernels and
                       through the plain versions, whose logits must agree.
                       A profiled prefill and decode step give the device's
                       busy time by kernel category and its idle share;
-  8. train-demo    -- ``train_demo()`` (the multi-model coded MLP training of
+  9. slice-ssm     -- the same for full-width mamba2-1.3b (48 Mamba2 blocks,
+                      attention-free): exactly 48 ``ssd_scan`` and 3,104
+                      ``rmsnorm`` launches around the served request, prefill
+                      ms, decode tok/s, peak memory, a profiled prefill and
+                      decode step, and f32 teacher-forced logits through the
+                      kernels and through ``plain=True``;
+ 10. train-demo    -- ``train_demo()`` (the multi-model coded MLP training of
                       ``launch/train.py --demo``) for gc, sr-sgc, m-sgc and
                       uncoded: every decoded gradient against the full-batch
                       one, and one ``coded_combine`` launch per encode and
                       decode the driver made;
-  9. train-full    -- ``VectorizedCodedTrainer`` on full-width qwen2-0.5b in
+ 11. train-full    -- ``VectorizedCodedTrainer`` on full-width qwen2-0.5b in
                       bf16 (2 models, 8 workers, 4 jobs, GE stragglers) for gc
                       and m-sgc: simulated clock, coded-step time, peak memory,
                       exact launches per step, finite losses; a profiled step;
                       then one f32 coded gradient at 2 layers (full widths and
                       vocab) against the full-batch gradient and the plain path;
- 10. gate_window   -- both gate-window kernels against their plain versions,
+ 12. gate_window   -- both gate-window kernels against their plain versions,
                       exact, over windows of 0-32 rows, ragged n, strided views;
- 11. sim           -- ``simulate_batch`` on the Table-1 grid (n 256, 4 schemes,
+ 13. sim           -- ``simulate_batch`` on the Table-1 grid (n 256, 4 schemes,
                       64 Gilbert-Elliott traces of 44 rounds) in both wait-outs,
                       on the card and on the CPU: equal under the simulator's
                       device contract, and equal to the descriptor ``simulate``
                       on 4 traces; the kernels launch exactly as often as the
                       CPU run calls their plain versions.  Wall per scheme, host
                       syncs per round, a profiled run's busy time per round;
- 12. select        -- App.-J ``select_parameters`` on the card for m-sgc and gc
+ 14. select        -- App.-J ``select_parameters`` on the card for m-sgc and gc
                       at n 256 (30-round probe) equals ``select_parameters_legacy``;
- 13. adaptive      -- ``run_adaptive`` at Fig. 18's configuration (n 64, 60 jobs,
+ 15. adaptive      -- ``run_adaptive`` at Fig. 18's configuration (n 64, 60 jobs,
                       a 20-round uncoded probe, 4 models) beats never switching;
- 14. timings       -- each kernel, its plain version and the nearest PyTorch
+ 16. timings       -- each kernel, its plain version and the nearest PyTorch
                       library call at the main path's shapes: device time from
                       the profiler (CUDA events per call beside it), and the
                       least time the card could take (published H100 peaks).
@@ -69,12 +80,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32": 67e12}
 
 ARCH = "qwen2-0.5b"
+SSM_ARCH = "mamba2-1.3b"
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 500, 32
 MAX_SEQ = PROMPT_LEN + NEW_TOKENS
 LOGIT_TOL = 2e-3          # tests/test_prefill.py's prefill/decode tolerance
 RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}       # tests/test_kernels.py
 GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}         # tests/test_kernels.py
+SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}        # tests/test_ssd_kernel.py
 # f32 gradients, kernels against plain autograd: sums over thousands of rows
 # taken in other orders (tests/test_torch_kernels.py GRAD_TOL)
 RMSNORM_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -159,8 +172,7 @@ def main() -> None:
         from repro_torch.kernels.rmsnorm import ref as rn_ref
         from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm as rn_kernel
         from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd as rn_bwd
-        from repro_torch.launch.serve import serve
-        from repro_torch.models import decode_step, init_params, prefill
+        from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
     except ImportError as e:
         fail(f"cannot import the port from {ROOT / 'src'}: {e}")
 
@@ -299,83 +311,37 @@ def main() -> None:
             errs["flash_attention_bwd"] = err
     torch.cuda.synchronize()
 
-    # 7. slice: full-width serving through the port's entry point
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    say("slice", f"{ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, "
-                 f"{cfg.param_count()} params in {cfg.dtype}")
-    serve(cfg, params, batch=BATCH, prompt_len=16, tokens=4, max_seq=32, device=dev)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa_kernel.launches = 0
-    rn_kernel.launches = 0
-    res = serve(cfg, params, batch=BATCH, prompt_len=PROMPT_LEN, tokens=NEW_TOKENS,
-                max_seq=MAX_SEQ, seed=0, device=dev)
-    launches = {"flash_attention": fa_kernel.launches, "rmsnorm": rn_kernel.launches}
-    peak_mem = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": cfg.num_layers,
-            "rmsnorm": (2 * cfg.num_layers + 1) * NEW_TOKENS}
-    say("slice", f"launches {launches} (expected {want})")
-    if launches != want:
-        fail(f"slice: kernel launches {launches}, expected {want}")
-    toks = res.tokens
-    if toks.shape != (BATCH, NEW_TOKENS) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
-        fail(f"slice: bad tokens, shape {toks.shape}, range [{toks.min()}, {toks.max()}]")
-    say("slice", f"bf16 serve: prefill {BATCH}x{PROMPT_LEN} in {res.prefill_s * 1e3:.3f} ms; "
-                 f"{NEW_TOKENS - 1} decode steps at {res.decode_tokens_per_s:.1f} tok/s; "
-                 f"total {res.total_s * 1e3:.3f} ms; max_memory_allocated {peak_mem} B")
-    say("slice", f"first sequence: {toks[0].tolist()}")
+    # 7. ssd_scan kernel vs plain
+    errs["ssd_scan"] = _ssd_check(dev)
 
-    # where the device time goes: one prefill and one decode step, profiled
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
-                           device=dev, dtype=torch.int32)
-    _, cache = prefill(params, cfg, {"tokens": prompt}, max_seq=MAX_SEQ)
-    _breakdown("profile prefill",
-               _device_events(lambda: prefill(params, cfg, {"tokens": prompt}, max_seq=MAX_SEQ)),
-               res.prefill_s * 1e3)
-    token = prompt[:, -1:]
-    _breakdown("profile decode step",
-               _device_events(lambda: decode_step(params, cfg, cache, token, PROMPT_LEN)),
-               (res.total_s - res.prefill_s) / (NEW_TOKENS - 1) * 1e3)
-    del params, cache
+    # 8. slice: full-width qwen2-0.5b serving through the port's entry point
+    L = cfg.num_layers
+    launches = _serve_slice("slice", dev, cfg, gen,
+                            {"flash_attention": fa_kernel, "rmsnorm": rn_kernel},
+                            {"flash_attention": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
 
-    # float32, teacher-forced on the kernel path's tokens: kernels vs plain
-    cfg32 = cfg.replace(dtype="float32")
-    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
-                           device=dev, dtype=torch.int32)
-    worst = 0.0
-    with torch.inference_mode():
-        k_logits, k_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=MAX_SEQ)
-        p_logits, p_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=MAX_SEQ, plain=True)
-        worst = max(worst, _logit_check("prefill", k_logits, p_logits))
-        token = k_logits[:, -1].argmax(-1)[:, None].to(torch.int32)
-        del k_logits, p_logits
-        for i in range(NEW_TOKENS - 1):
-            k_logits, k_cache = decode_step(p32, cfg32, k_cache, token, PROMPT_LEN + i)
-            p_logits, p_cache = decode_step(p32, cfg32, p_cache, token, PROMPT_LEN + i,
-                                            plain=True)
-            worst = max(worst, _logit_check(f"decode {i}", k_logits, p_logits, quiet=True))
-            token = k_logits.argmax(-1)[:, None].to(torch.int32)
-    say("slice", f"f32 teacher-forced logits, kernels vs plain: prefill and "
-                 f"{NEW_TOKENS - 1} decode steps within {LOGIT_TOL:g} (max_abs_err {worst:.3e})")
-    del p32, k_cache, p_cache
-    torch.cuda.empty_cache()
+    # 9. slice-ssm: the same for full-width mamba2-1.3b
+    scfg = get_config(SSM_ARCH)
+    L = scfg.num_layers
+    launches["ssd_scan"] = _serve_slice(
+        "slice-ssm", dev, scfg, gen, {"ssd_scan": ssd_kernel, "rmsnorm": rn_kernel},
+        {"ssd_scan": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})["ssd_scan"]
 
-    # 8. train-demo: the multi-model coded MLP training of launch/train.py --demo
+    # 10. train-demo: the multi-model coded MLP training of launch/train.py --demo
     launches["coded_combine"] = _train_demo(dev)
 
-    # 9. train-full: VectorizedCodedTrainer at full qwen2-0.5b width, bf16
+    # 11. train-full: VectorizedCodedTrainer at full qwen2-0.5b width, bf16
     launches.update(_train_full(dev, cfg))
     _coded_gradient_check(dev, cfg)
 
-    # 10-13. the simulator's device path: the gate-window kernels, the
+    # 12-15. the simulator's device path: the gate-window kernels, the
     # Table-1 grid, App.-J selection and the adaptive trainer
     errs.update(_gate_window_check(dev))
     launches.update(_sim(dev))
     _select(dev)
     _adaptive(dev)
 
-    # 14. timings at the main paths' shapes (bf16, as served and trained)
+    # 16. timings at the main paths' shapes (bf16, as served and trained)
     rows = []
     x = randn(BATCH * PROMPT_LEN, cfg.d_model, dtype=torch.bfloat16)
     g = randn(cfg.d_model, dtype=torch.bfloat16)
@@ -409,6 +375,7 @@ def main() -> None:
     ))
     rows += _training_timings(dev, cfg, randn, heads_view)
     rows += _gate_window_timings(dev)
+    rows.append(_ssd_timing(dev))
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
@@ -918,16 +885,198 @@ def _gate_window_timings(dev) -> list:
     return rows
 
 
-def _logit_check(name, got, want, quiet=False) -> float:
+def _ssd_inputs(dev, gen, b, nc, Q, nh, hd, st, dtype, A_scale=1.0, tail=0):
+    """Intra-chunk inputs on the card, flattened to (b*nc, ...), drawn as
+    tests/test_ssd_kernel.py draws them; the last ``tail`` rows of the last
+    chunk are a sequence's zero padding (zero x, B, C and dt)."""
+    import torch
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    x, Bm, Cm = rn(b, nc, Q, nh, hd), rn(b, nc, Q, st), rn(b, nc, Q, st)
+    dt = torch.rand((b, nc, Q, nh), generator=gen, device=dev) * 0.5 + 0.05
+    A = -(torch.rand(nh, generator=gen, device=dev) + 0.1) * A_scale
+    if tail:
+        for t in (x, Bm, Cm, dt):
+            t[:, -1, Q - tail:] = 0
+    cum = torch.cumsum(dt * A, dim=2)
+    return tuple(t.reshape((b * nc,) + t.shape[2:]) for t in
+                 (x.to(dtype), dt, cum, Bm.to(dtype), Cm.to(dtype)))
+
+
+def _ssd_check(dev) -> float:
+    """The SSD intra-chunk kernel against its plain version on the card;
+    returns the error at mamba2-1.3b's full width in bf16."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    f32, bf16 = torch.float32, torch.bfloat16
+    full = (BATCH, -(-PROMPT_LEN // 64), 64, 64, 64, 128)   # as [slice-ssm] gives it
+    cases = [  # (b, nc, Q, nh, hd, st), dtype, A_scale, tail rows, note
+        *[(s, f32, 1.0, 0, "") for s in [(2, 2, 16, 3, 8, 5), (1, 4, 64, 4, 32, 16),
+                                         (2, 1, 128, 2, 64, 32), (1, 2, 64, 8, 8, 128)]],
+        ((1, 2, 32, 2, 16, 8), bf16, 1.0, 0, ""),
+        ((2, 3, 64, 4, 32, 16), f32, 1.0, 64 * 3 - 150, " ragged final chunk"),
+        ((2, 3, 50, 3, 20, 5), f32, 1.0, 0, " odd Q and head_dim"),
+        (full, f32, 1.0, 0, " full width"),
+        (full, bf16, 1.0, 0, " full width"),
+        ((1, 2, 64, 4, 16, 8), f32, 200.0, 0, " steep decay"),
+    ]
+    worst = 0.0
+    for shape, dtype, A_scale, tail, note in cases:
+        args = _ssd_inputs(dev, gen, *shape, dtype, A_scale, tail)
+        got = ssd_kernel(*args)
+        torch.cuda.synchronize()
+        want = ssd_ref.ssd_intra_chunk(*args)
+        if not torch.isfinite(got).all():
+            fail(f"ssd_scan {shape}{note}: non-finite output")
+        tol = SSD_TOL[_dtype_name(dtype)]
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, rtol=tol, atol=tol)
+        say("ssd_scan", f"{shape} {_dtype_name(dtype)}{note}: max_abs_err {err:.3e} "
+                        f"(tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"ssd_scan {shape}{note}: kernel disagrees with the plain version")
+        if (shape, dtype) == (full, bf16):
+            worst = err
+    # the model's layout: x, B and C are strided slices of one projection
+    nh, hd, st = 4, 16, 8
+    xbc = torch.randn((6, 64, nh * hd + 2 * st), generator=gen, device=dev)
+    x = xbc[..., :nh * hd].reshape(6, 64, nh, hd)
+    Bm, Cm = xbc[..., nh * hd:nh * hd + st], xbc[..., nh * hd + st:]
+    dt = torch.rand((6, 64, nh), generator=gen, device=dev) * 0.5
+    cum = torch.cumsum(-dt, dim=1)
+    got, want = ssd_kernel(x, dt, cum, Bm, Cm), ssd_ref.ssd_intra_chunk(x, dt, cum, Bm, Cm)
+    err = (got - want).abs().max().item()
+    say("ssd_scan", f"strided slices of a (6, 64, {nh * hd + 2 * st}) projection: max_abs_err "
+                    f"{err:.3e} (tol {SSD_TOL['float32']:g})")
+    if not torch.allclose(got, want, rtol=SSD_TOL["float32"], atol=SSD_TOL["float32"]):
+        fail("ssd_scan: the kernel misreads strided inputs")
+    z = torch.zeros(1, 129, 1, 8, device=dev)
+    try:
+        ssd_kernel(z, z[..., 0], z[..., 0], z[:, :, 0], z[:, :, 0])
+    except ValueError:
+        say("ssd_scan", "a 129-row chunk refused")
+    else:
+        fail("ssd_scan: a 129-row chunk did not raise")
+    torch.cuda.synchronize()
+    return worst
+
+
+def _serve_slice(phase, dev, cfg, gen, counters, want) -> dict:
+    """Full-width serving of ``cfg`` through ``serve()`` (random weights from
+    seed 0): the launches of each kernel in ``counters`` (name -> wrapper)
+    around one request, which must equal ``want``; prefill ms, decode tok/s and
+    peak memory; a profiled prefill and decode step; then float32
+    teacher-forced logits through the kernels and through ``plain=True``.
+    Returns the request's launches."""
+    import torch
+
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import decode_step, init_params, prefill
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    say(phase, f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+               f"{cfg.param_count()} params in {cfg.dtype}")
+    serve(cfg, params, batch=BATCH, prompt_len=16, tokens=4, max_seq=32, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = serve(cfg, params, batch=BATCH, prompt_len=PROMPT_LEN, tokens=NEW_TOKENS,
+                max_seq=MAX_SEQ, seed=0, device=dev)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_mem = torch.cuda.max_memory_allocated()
+    say(phase, f"launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"{phase}: kernel launches {launches}, expected {want}")
+    toks = res.tokens
+    if toks.shape != (BATCH, NEW_TOKENS) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{phase}: bad tokens, shape {toks.shape}, range [{toks.min()}, {toks.max()}]")
+    say(phase, f"{cfg.dtype} serve: prefill {BATCH}x{PROMPT_LEN} in {res.prefill_s * 1e3:.3f} "
+               f"ms; {NEW_TOKENS - 1} decode steps at {res.decode_tokens_per_s:.1f} tok/s; "
+               f"total {res.total_s * 1e3:.3f} ms; max_memory_allocated {peak_mem} B")
+    say(phase, f"first sequence: {toks[0].tolist()}")
+
+    # where the device time goes: one prefill and one decode step, profiled
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
+                           device=dev, dtype=torch.int32)
+    _, cache = prefill(params, cfg, {"tokens": prompt}, max_seq=MAX_SEQ)
+    _breakdown(f"profile {cfg.name} prefill",
+               _device_events(lambda: prefill(params, cfg, {"tokens": prompt}, max_seq=MAX_SEQ)),
+               res.prefill_s * 1e3)
+    token = prompt[:, -1:]
+    _breakdown(f"profile {cfg.name} decode step",
+               _device_events(lambda: decode_step(params, cfg, cache, token, PROMPT_LEN)),
+               (res.total_s - res.prefill_s) / (NEW_TOKENS - 1) * 1e3)
+    del params, cache
+    torch.cuda.empty_cache()
+
+    # float32, teacher-forced on the kernel path's tokens: kernels vs plain
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
+                           device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        k_logits, k_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=MAX_SEQ)
+        p_logits, p_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=MAX_SEQ, plain=True)
+        worst = _logit_check("prefill", k_logits, p_logits, phase=phase)
+        token = k_logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        del k_logits, p_logits
+        for i in range(NEW_TOKENS - 1):
+            k_logits, k_cache = decode_step(p32, cfg32, k_cache, token, PROMPT_LEN + i)
+            p_logits, p_cache = decode_step(p32, cfg32, p_cache, token, PROMPT_LEN + i,
+                                            plain=True)
+            worst = max(worst, _logit_check(f"decode {i}", k_logits, p_logits, quiet=True,
+                                            phase=phase))
+            token = k_logits.argmax(-1)[:, None].to(torch.int32)
+        caches = max((k_cache[k] - p_cache[k]).abs().max().item() for k in k_cache)
+    say(phase, f"f32 teacher-forced logits, kernels vs plain: prefill and {NEW_TOKENS - 1} "
+               f"decode steps within {LOGIT_TOL:g} (max_abs_err {worst:.3e}); final caches "
+               f"differ by {caches:.3e}")
+    del p32, k_cache, p_cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _ssd_timing(dev) -> dict:
+    """The ``ssd_scan`` timing row at [slice-ssm]'s prefill shape, bf16."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, nc, Q, nh, hd, st = BATCH, -(-PROMPT_LEN // 64), 64, 64, 64, 128
+    args = _ssd_inputs(dev, gen, b, nc, Q, nh, hd, st, torch.bfloat16)
+    bc = b * nc
+    n_bytes = sum(t.numel() * t.element_size() for t in args) + bc * Q * nh * hd * 4
+    # the causal half: C.B^T over (q, u <= q), then per head the decay (a
+    # subtract, an exp, a multiply), x*dt, and w @ (x*dt): f32 on CUDA cores
+    pairs = Q * (Q + 1) // 2
+    n_ops = bc * (2 * pairs * st + nh * (pairs * (2 * hd + 3) + Q * hd))
+    row = _timed("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/ssd_scan.py:30", (bc, Q, nh, hd, st),
+                 lambda: ssd_kernel(*args), lambda: ssd_ref.ssd_intra_chunk(*args), None,
+                 n_bytes, n_ops, "f32", iters=100)
+    torch.cuda.synchronize()
+    return row
+
+
+def _logit_check(name, got, want, quiet=False, phase="slice") -> float:
     import torch
 
     if not torch.isfinite(got).all():
-        fail(f"slice {name}: non-finite logits")
+        fail(f"{phase} {name}: non-finite logits")
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, rtol=LOGIT_TOL, atol=LOGIT_TOL):
-        fail(f"slice {name}: kernel-path logits differ from the plain path by {err:.3e}")
+        fail(f"{phase} {name}: kernel-path logits differ from the plain path by {err:.3e}")
     if not quiet:
-        say("slice", f"f32 {name} logits {tuple(got.shape)}: max_abs_err {err:.3e}")
+        say(phase, f"f32 {name} logits {tuple(got.shape)}: max_abs_err {err:.3e}")
     return err
 
 
@@ -1030,6 +1179,8 @@ def _category(name: str) -> str:
         return "rmsnorm kernel"
     if "window_stats_kernel" in name or "buffer_stats_kernel" in name:
         return "gate_window kernels"
+    if "ssd_intra_kernel" in name:
+        return "ssd_scan kernel"
     if any(w in name.lower() for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")):
         return "matmul (cuBLAS)"
     return "other (elementwise, copies, softmax, argmax)"

@@ -13,6 +13,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 # architectures of the JAX package not yet runnable here -> ROADMAP item
@@ -22,8 +23,8 @@ _UNPORTED = {
     "deepseek-67b": "A-2 (configs of the dense family)",
     "mixtral-8x22b": "A-8 (MoE family)",
     "qwen2-moe-a2.7b": "A-8 (MoE family)",
-    "mamba2-1.3b": "A-8 (SSM family)",
-    "zamba2-2.7b": "A-8 (hybrid family)",
+    "zamba2-2.7b": "A-8 (hybrid family: its shared attention has head_dim 80, and the "
+                   "attention kernel takes 32, 64 or 128)",
     "paligemma-3b": "A-8 (vlm family)",
     "hubert-xlarge": "A-8 (audio family)",
 }

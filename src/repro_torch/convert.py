@@ -6,7 +6,9 @@ Each converter takes a JAX package pytree converted to numpy arrays
 * ``params_from_jax``: a model's parameters.  Both packages keep dense
   weights as (d_in, d_out) applied as ``x @ w``, so no weight is
   transposed; the stacked ``layers`` arrays (L, ...) are split into one
-  dict per layer, and a tied head stays ``embed.T``.
+  dict per layer, and a tied head stays ``embed.T``.  Leaves are cast to the
+  model dtype, but for those the JAX package keeps in f32 whatever the model
+  dtype (the ssm block's ``A_log``, ``D`` and ``dt_bias``).
 * ``mlp_params_from_jax``: the coded-training driver's ``MLPModel``
   parameters (a flat dict, f32).
 * ``adamw_state_from_jax``: an ``AdamWState``, its f32 moments laid out as
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.ssm import F32_PARAMS
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.optim import AdamWState
 
@@ -29,28 +32,31 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     )
 
 
-def _map(tree, fn):
-    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+def _map(tree, fn, path=()):
+    """The tree with each leaf ``a`` at key path ``p`` replaced by ``fn(p, a)``."""
+    return {k: _map(v, fn, path + (k,)) if isinstance(v, dict) else fn(path + (k,), v)
+            for k, v in tree.items()}
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda", dtype=None) -> dict:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(f"{cfg.family} weights are not ported yet; see ROADMAP.md A-8")
     dtype = dtype or torch_dtype(cfg)
 
-    def conv(a):
-        return _tensor(a, device, dtype)
+    def conv(path, a):
+        f32 = len(path) >= 2 and path[-2] == "ssm" and path[-1] in F32_PARAMS
+        return _tensor(a, device, torch.float32 if f32 else dtype)
 
     params = _map({k: v for k, v in tree.items() if k != "layers"}, conv)
     params["layers"] = [
-        _map(tree["layers"], lambda a, i=i: conv(np.asarray(a)[i]))
+        _map(tree["layers"], lambda path, a, i=i: conv(path, np.asarray(a)[i]))
         for i in range(cfg.num_layers)
     ]
     return params
 
 
 def mlp_params_from_jax(tree: dict, device="cuda") -> dict:
-    return _map(tree, lambda a: _tensor(a, device, torch.float32))
+    return _map(tree, lambda _, a: _tensor(a, device, torch.float32))
 
 
 def adamw_state_from_jax(state, cfg: ModelConfig, device="cuda") -> AdamWState:

@@ -19,6 +19,9 @@ Kernels:
   * ``gate_window``     — the wait-out gate's per-cell window statistics
     (integer-only, launch-bound at the gate's sizes): ``window_stats`` for the
     all-or-nothing admission, ``buffer_stats`` for the selective one.
+  * ``ssd_scan``        — Mamba2's SSD intra-chunk block (scores C.B^T, the
+    causal decay mask and the product with x*dt, per batch-chunk; bound by
+    bytes), forward only.
 """
 
-from . import flash_attention, gate_window, gc_coding, rmsnorm  # noqa: F401
+from . import flash_attention, gate_window, gc_coding, rmsnorm, ssd_scan  # noqa: F401

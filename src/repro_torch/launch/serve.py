@@ -1,4 +1,5 @@
-"""Serving launcher: batched greedy decode with a KV cache.
+"""Serving launcher: batched greedy decode with a decode cache (a KV cache for
+the dense family, the SSM state and conv buffer for the ssm family).
 
 Prefill a prompt batch, then decode greedily for N steps.  Runs on the card
 unless ``--device cpu`` is given; with no card it raises rather than fall
@@ -7,6 +8,8 @@ back.
   PYTHONPATH=src python -m repro_torch.launch.serve --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --full --batch 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full --batch 8
 """
 
 from __future__ import annotations

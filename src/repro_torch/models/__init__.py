@@ -1,4 +1,4 @@
-"""Models of the port: the dense family so far."""
+"""Models of the port: the dense and ssm families so far."""
 
 from .config import ModelConfig
 from .transformer import (

@@ -1,23 +1,27 @@
 """Model assembly of the dense family (GQA attention + SwiGLU, optional QKV
-bias / sliding window / tied embeddings).
+bias / sliding window / tied embeddings) and the ssm family (Mamba2 blocks
+only, attention-free).
 
 Port of ``src/repro/models/transformer.py``.  Parameters are a plain dict:
 ``embed`` (vocab, d), ``final_norm``, optional ``head`` (d, vocab), and
 ``layers``, a list with one dict per layer (the JAX package stacks layers on
 a leading axis and scans them; here the scan is a Python loop).  The serve
 path (``prefill``, ``decode_step``, ``generate``) runs under
-``torch.inference_mode`` and updates the KV cache in place.
+``torch.inference_mode`` and updates the cache in place: a KV cache for the
+dense family, the SSM state and conv buffer for the ssm family.
 
 Every entry point takes ``plain=False``; ``plain=True`` runs the plain
 PyTorch versions of the kernels on any device.  ``forward``, ``token_nll``
 and ``loss_fn`` run under autograd: on the card, the kernels' backward
-kernels differentiate them.
+kernels differentiate them (the dense family; the ``ssd_scan`` kernel has no
+backward, so the ssm family trains on the CPU only for now).
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (
     attention_apply,
@@ -37,7 +41,7 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend != "none":
+    if cfg.family not in ("dense", "ssm") or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet; "
             f"see ROADMAP.md A-8"
@@ -67,6 +71,15 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
             torch.randn((cfg.d_model, cfg.vocab_size), generator=gen, device=device)
             * cfg.d_model ** -0.5
         ).to(dtype)
+    if cfg.family == "ssm":
+        params["layers"] = [
+            {
+                "norm1": rmsnorm_init(cfg.d_model, dtype, device),
+                "ssm": ssm_mod.ssm_init(gen, cfg, dtype),
+            }
+            for _ in range(cfg.num_layers)
+        ]
+        return params
     params["layers"] = [
         {
             "norm1": rmsnorm_init(cfg.d_model, dtype, device),
@@ -102,11 +115,24 @@ def _layer(lp, cfg, x, *, plain):
     return x, k, v
 
 
+def _ssm_layer(lp, cfg, x, *, plain, return_cache=False):
+    """x + ssm(norm1(x)); with ``return_cache`` also (state, conv_buf)."""
+    out = ssm_mod.ssm_apply(lp["ssm"], rmsnorm_apply(lp["norm1"], x, plain=plain), cfg,
+                            return_cache=return_cache, plain=plain)
+    if return_cache:
+        y, state, conv = out
+        return x + y, state, conv
+    return x + out
+
+
 def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
     """Full-sequence logits. Returns (logits (b, s, vocab), aux_loss)."""
     x = embed_inputs(params, cfg, batch)
     for lp in params["layers"]:
-        x, _, _ = _layer(lp, cfg, x, plain=plain)
+        if cfg.family == "ssm":
+            x = _ssm_layer(lp, cfg, x, plain=plain)
+        else:
+            x, _, _ = _layer(lp, cfg, x, plain=plain)
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
     return x @ _head(params, cfg), torch.zeros((), device=x.device)
 
@@ -135,9 +161,23 @@ def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None, device=None):
-    """KV cache, stacked on a leading layer axis: k, v (L, b, hkv, max_seq, dh)."""
+    """The decode cache, stacked on a leading layer axis.
+
+    dense: KV cache k, v (L, b, hkv, max_seq, dh).  ssm: ``state`` (L, b, nh,
+    hd, st) f32 and ``conv`` (L, b, 3, conv_dim) in the model dtype, whatever
+    ``max_seq``.
+    """
     _check_family(cfg)
     dtype = dtype or torch_dtype(cfg)
+    if cfg.family == "ssm":
+        conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
+        L = cfg.num_layers
+        return {
+            "state": torch.zeros((L, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state), dtype=torch.float32, device=device),
+            "conv": torch.zeros((L, batch_size, ssm_mod.CONV_K - 1, conv_dim), dtype=dtype,
+                                device=device),
+        }
     shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_seq, cfg.head_dim_)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -158,6 +198,10 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, *, plain: bool = Fals
         raise ValueError(f"prompt length {s} exceeds max_seq {max_seq}")
     cache = init_cache(cfg, b, max_seq, dtype=x.dtype, device=x.device)
     for i, lp in enumerate(params["layers"]):
+        if cfg.family == "ssm":
+            x, cache["state"][i], cache["conv"][i] = _ssm_layer(lp, cfg, x, plain=plain,
+                                                                return_cache=True)
+            continue
         x, k, v = _layer(lp, cfg, x, plain=plain)
         cache["k"][i, :, :, :s] = k
         cache["v"][i, :, :, :s] = v
@@ -169,17 +213,25 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, *, plain: bool = Fals
 def decode_step(params, cfg: ModelConfig, cache, token, pos: int, *, plain: bool = False):
     """One serve step: token (b, 1) int, pos the token's position.
 
-    Returns (logits (b, vocab), cache); the cache is updated in place.
+    Returns (logits (b, vocab), cache); the cache is updated in place.  The
+    ssm family's state carries the position, so ``pos`` is not read there.
     """
     _check_family(cfg)
-    if not 0 <= pos < cache["k"].shape[3]:
-        raise ValueError(f"pos {pos} outside the cache's {cache['k'].shape[3]} positions")
     x = params["embed"][token]
-    for i, lp in enumerate(params["layers"]):
-        h = attention_decode(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
-                             cache["k"][i], cache["v"][i], pos, cfg)
-        x = x + h
-        x = x + mlp_apply(lp["mlp"], rmsnorm_apply(lp["norm2"], x, plain=plain))
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params["layers"]):
+            y, cache["state"][i], cache["conv"][i] = ssm_mod.ssm_decode_step(
+                lp["ssm"], rmsnorm_apply(lp["norm1"], x, plain=plain), cache["state"][i],
+                cache["conv"][i], cfg, plain=plain)
+            x = x + y
+    else:
+        if not 0 <= pos < cache["k"].shape[3]:
+            raise ValueError(f"pos {pos} outside the cache's {cache['k'].shape[3]} positions")
+        for i, lp in enumerate(params["layers"]):
+            h = attention_decode(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
+                                 cache["k"][i], cache["v"][i], pos, cfg)
+            x = x + h
+            x = x + mlp_apply(lp["mlp"], rmsnorm_apply(lp["norm2"], x, plain=plain))
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
     return (x @ _head(params, cfg))[:, 0], cache
 

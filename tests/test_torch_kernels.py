@@ -29,6 +29,7 @@ from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.kernels.rmsnorm import ref as rn_ref
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm as rn_kernel
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd as rn_bwd
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
@@ -328,7 +329,7 @@ def test_attention_plain_grad_matches_jax(b, hq, hkv, sq, sk, dh, causal, window
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernel wrappers launch on CUDA tensors or raise: no plain fallback."""
-    before = (rn_kernel.launches, fa_kernel.launches)
+    before = (rn_kernel.launches, fa_kernel.launches, ssd_kernel.launches)
     with pytest.raises(ValueError, match="CUDA"):
         rn_kernel(torch.ones(4, 64), torch.ones(64))
     q = torch.ones(1, 2, 8, 64)
@@ -336,7 +337,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         fa_kernel(q, q, q)
     with pytest.raises(ValueError, match="head_dim"):
         fa_kernel(torch.ones(1, 2, 8, 48), torch.ones(1, 2, 8, 48), torch.ones(1, 2, 8, 48))
-    assert (rn_kernel.launches, fa_kernel.launches) == before
+    x, dt, bc = torch.ones(2, 16, 3, 8), torch.ones(2, 16, 3), torch.ones(2, 16, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel(x, dt, dt, bc, bc)
+    assert (rn_kernel.launches, fa_kernel.launches, ssd_kernel.launches) == before
 
 
 def test_backward_and_combine_wrappers_refuse_cpu_tensors():
