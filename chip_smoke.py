@@ -6,11 +6,17 @@
 Phases, one or more printed lines each; any failure exits non-zero:
   1. device        -- card name, count, and nvidia-smi's name and power limit;
   2. build         -- nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
+                      each kernel's ptxas registers, shared memory and spills;
+                      fails unless every bf16 attention kernel's SASS holds
+                      HMMA (tensor-core) instructions and none spills at dh 64;
   3. rmsnorm       -- the kernel against its plain PyTorch version on the card;
-  4. attention     -- the kernel against its plain PyTorch version on the card;
+  4. attention     -- the kernel against its plain PyTorch version on the card,
+                      f32 (CUDA cores) and bf16 (tensor cores), the bf16 edges
+                      of ``ATTN_BF16_EDGES``;
   5. gc_coding     -- the coded-combine kernel against its plain version;
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
-     attention-bwd    at the training shapes, in f32 and bf16;
+     attention-bwd    at the training shapes, in f32 and bf16, and attention's
+                      bf16 edges;
   7. ssd_scan      -- the SSD intra-chunk kernel against its plain version:
                       tests/test_ssd_kernel.py's shapes, a ragged final chunk,
                       odd Q and head_dim, a strided view, mamba2-1.3b's full
@@ -55,8 +61,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       a 20-round uncoded probe, 4 models) beats never switching;
  16. timings       -- each kernel, its plain version and the nearest PyTorch
                       library call at the main path's shapes: device time from
-                      the profiler (CUDA events per call beside it), and the
-                      least time the card could take (published H100 peaks).
+                      the profiler (CUDA events per call beside it), the least
+                      time the card could take (published H100 peaks), achieved
+                      rates and share of that bound; attention in bf16 and f32
+                      at the prefill's and the coded step's shapes, with SDPA
+                      (or its autograd) and each kernel's ptxas line.
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +95,21 @@ MAX_SEQ = PROMPT_LEN + NEW_TOKENS
 LOGIT_TOL = 2e-3          # tests/test_prefill.py's prefill/decode tolerance
 RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}   # tests/test_kernels.py
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}       # tests/test_kernels.py
+# the bf16 (tensor-core) attention kernels' edges, forward and backward:
+# (b, hq, hkv, sq, sk, dh, causal, window, valid_k) as (b, s, h, dh) views --
+# head dims 32/64/128, single-row and ragged q tiles, sq != sk with valid_k <
+# sk, windows 32/96/200, GQA groups 1, 2, 7, 8, non-causal, and queries from
+# 131 on that window 32 plus valid_k 100 leave without a key
+ATTN_BF16_EDGES = [
+    *[(2, 4, 2, 64, 64, dh, True, 0, None) for dh in (32, 64, 128)],
+    *[(2, 14, 2, sq, sq, 64, True, 0, None) for sq in (1, 33, 64, 500)],
+    (2, 14, 2, 100, 300, 64, False, 0, 250),
+    (2, 7, 1, 300, 180, 128, True, 0, 150),
+    (2, 8, 2, 200, 77, 128, False, 0, None),
+    *[(1, 4, 2, 256, 256, 64, True, w, None) for w in (32, 96, 200)],
+    *[(2, 2 * group, 2, 130, 130, 64, True, 0, None) for group in (1, 2, 7, 8)],
+    *[(1, 4, 2, 300, 300, 64, causal, 32, 100) for causal in (False, True)],
+]
 GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}         # tests/test_kernels.py
 SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}        # tests/test_ssd_kernel.py
 # f32 gradients, kernels against plain autograd: sums over thousands of rows
@@ -139,18 +163,76 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(log: str) -> list[str]:
-    """One line per compiled kernel: its registers, shared memory and spills."""
-    lines, name, spill = [], None, ""
+def kernel_label(mangled: str) -> str:
+    """``attn_fwd_bf16_kernel<64>`` from a kernel's mangled name (its innermost
+    name and template arguments); the name cut to 70 characters where it does
+    not parse."""
+    m, i = mangled, 2
+
+    def number(i):
+        j = i
+        while m[j].isdigit():
+            j += 1
+        return int(m[i:j]), j
+
+    try:
+        if m[i] == "N":
+            i += 1
+        name = ""
+        while m[i].isdigit():
+            n, i = number(i)
+            name, i = m[i:i + n], i + n
+        if m[i] == "I":
+            args, i = [], i + 1
+            while m[i] != "E":
+                if m[i] == "L":  # a literal: L<type><value>E
+                    j = m.index("E", i)
+                    args.append(m[i + 2:j])
+                    i = j + 1
+                elif m[i].isdigit():
+                    n, i = number(i)
+                    args.append(m[i:i + n])
+                    i += n
+                elif m[i] == "S":  # a substitution: S_, S0_, ...
+                    j = m.index("_", i)
+                    args.append(m[i:j + 1])
+                    i = j + 1
+                else:
+                    args.append({"f": "float", "b": "bool", "i": "int"}.get(m[i], m[i]))
+                    i += 1
+            name += "<" + ", ".join(args) + ">"
+        return name or m[:70]
+    except (IndexError, ValueError):
+        return m[:70]
+
+
+def ptxas_info(log: str) -> dict[str, str]:
+    """Kernel label -> its registers, shared memory and spills (nvcc -Xptxas -v)."""
+    info, name, spill = {}, None, ""
     for raw in log.splitlines():
         if "Compiling entry function" in raw:
             name = raw.split("'")[1]
         elif "spill" in raw:
             spill = raw.strip()
         elif "Used" in raw and name:
-            lines.append(f"{name[:70]}: {raw.split(':', 1)[1].strip()}; {spill}")
+            info[kernel_label(name)] = f"{raw.split(':', 1)[1].strip()}; {spill}"
             name, spill = None, ""
-    return lines
+    return info
+
+
+def sass_hmma_counts(lib: Path, nvcc: str) -> dict[str, int]:
+    """Kernel label -> HMMA (tensor-core) instructions in its SASS (cuobjdump)."""
+    tool = Path(nvcc).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            name = kernel_label(line.split("Function :", 1)[1].strip())
+            counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def main() -> None:
@@ -190,8 +272,21 @@ def main() -> None:
     # 2. build
     info = _build.build()
     say("build", f"{info.path.relative_to(ROOT)} in {info.seconds:.1f} s")
-    for line in ptxas_summary(info.ptxas_log):
-        say("build", line)
+    ptxas = ptxas_info(info.ptxas_log)
+    for label, line in ptxas.items():
+        say("build", f"{label}: {line}")
+    # the bf16 attention kernels run on the tensor cores, without spills at the
+    # model's head dim
+    hmma = sass_hmma_counts(info.path, _build._nvcc())
+    attn = {label: n for label, n in sorted(hmma.items()) if label.startswith("attn_")}
+    say("build", f"HMMA instructions in the SASS: {attn}")
+    bf16_attn = [label for label in attn if "_bf16_kernel<" in label]
+    if len(bf16_attn) != 9 or not all(attn[label] for label in bf16_attn):
+        fail(f"the bf16 attention kernels' SASS lacks tensor-core instructions: {attn}")
+    for label in ("attn_fwd_bf16_kernel<64>", "attn_bwd_dq_bf16_kernel<64>",
+                  "attn_bwd_dkdv_bf16_kernel<64>"):
+        if "0 bytes spill stores, 0 bytes spill loads" not in ptxas.get(label, ""):
+            fail(f"{label} spills at head dim 64: {ptxas.get(label)}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -243,6 +338,7 @@ def main() -> None:
         (1, 4, 2, 128, 128, 64, True, 0, None, torch.bfloat16, False),
         (1, 14, 2, 200, 200, 64, True, 0, None, torch.float32, True),
     ]
+    cases += [c + (torch.bfloat16, True) for c in ATTN_BF16_EDGES]
     for b, hq, hkv, sq, sk, dh, causal, window, valid_k, dtype, strided in cases:
         if strided:
             q, k, v = (heads_view(b, hq, sq, dh, dtype), heads_view(b, hkv, sk, dh, dtype),
@@ -290,22 +386,23 @@ def main() -> None:
                 errs["rmsnorm_bwd"] = err
     torch.cuda.synchronize()
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    for b, h, g_kv, sq, causal, window, dtype in [
-        (TRAIN_SEQS, hq, hkv, TRAIN["seq"], True, 0, torch.float32),
-        (TRAIN_SEQS, hq, hkv, TRAIN["seq"], True, 0, torch.bfloat16),
-        (2, hq, hkv, 33, True, 0, torch.float32),
-        (1, 4, 2, 256, True, 96, torch.float32),
-        (1, 8, 1, 200, False, 0, torch.float32),
-    ]:
-        q, k, v, do = (heads_view(b, hh, sq, dh, dtype) for hh in (h, g_kv, g_kv, h))
-        out, lse = fa_kernel(q, k, v, causal=causal, window=window, return_lse=True)
-        got = fa_bwd(q, k, v, out, lse, do, causal=causal, window=window)
+    bwd_cases = [  # b, hq, hkv, sq, sk, dh, causal, window, valid_k, dtype
+        (TRAIN_SEQS, hq, hkv, TRAIN["seq"], TRAIN["seq"], dh, True, 0, None, torch.float32),
+        (TRAIN_SEQS, hq, hkv, TRAIN["seq"], TRAIN["seq"], dh, True, 0, None, torch.bfloat16),
+        (2, hq, hkv, 33, 33, dh, True, 0, None, torch.float32),
+        (1, 4, 2, 256, 256, dh, True, 96, None, torch.float32),
+        (1, 8, 1, 200, 200, dh, False, 0, None, torch.float32),
+    ] + [c + (torch.bfloat16,) for c in ATTN_BF16_EDGES]
+    for b, h, g_kv, sq, sk, dh_, causal, window, valid_k, dtype in bwd_cases:
+        q, do = (heads_view(b, h, sq, dh_, dtype) for _ in range(2))
+        k, v = (heads_view(b, g_kv, sk, dh_, dtype) for _ in range(2))
+        kw = dict(causal=causal, window=window, valid_k=valid_k)
+        out, lse = fa_kernel(q, k, v, return_lse=True, **kw)
+        got = fa_bwd(q, k, v, out, lse, do, **kw)
         qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
-        want = torch.autograd.grad(fa_ref.attention(qr, kr, vr, causal=causal, window=window),
-                                   (qr, kr, vr), do)
+        want = torch.autograd.grad(fa_ref.attention(qr, kr, vr, **kw), (qr, kr, vr), do)
         err = max(compare("attention-bwd", f"{name} q {tuple(q.shape)} kv {tuple(k.shape)} "
-                          f"{dtype} causal {causal} window {window}", a, bb,
-                          ATTN_TOL[_dtype_name(dtype)])
+                          f"{dtype} {kw}", a, bb, ATTN_TOL[_dtype_name(dtype)])
                   for name, a, bb in zip(("dq", "dk", "dv"), got, want))
         if (b, dtype) == (TRAIN_SEQS, torch.bfloat16):
             errs["flash_attention_bwd"] = err
@@ -359,21 +456,8 @@ def main() -> None:
                    f"{_device_ms(lambda: rn_kernel(xd, g), 500)} ms, per call "
                    f"{_cuda_ms(lambda: rn_kernel(xd, g), 500):.5f} ms")
 
-    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = heads_view(BATCH, hq, PROMPT_LEN, dh, torch.bfloat16)
-    k = heads_view(BATCH, hkv, PROMPT_LEN, dh, torch.bfloat16)
-    v = heads_view(BATCH, hkv, PROMPT_LEN, dh, torch.bfloat16)
-    pairs = BATCH * hq * PROMPT_LEN * (PROMPT_LEN + 1) // 2  # causal (q, k) pairs
-    fa_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
-    fa_ops = 4 * dh * pairs  # q.k and p.v, a multiply and an add each
-    rows.append(_timed(
-        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/flash_attention.py:45", tuple(q.shape),
-        lambda: fa_kernel(q, k, v, causal=True), lambda: fa_ref.attention(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-        fa_bytes, fa_ops, "bf16_tensor", iters=100,
-    ))
-    rows += _training_timings(dev, cfg, randn, heads_view)
+    rows += _attention_timings(cfg, heads_view, ptxas)
+    rows += _training_timings(dev, cfg, randn)
     rows += _gate_window_timings(dev)
     rows.append(_ssd_timing(dev))
     for r in rows:
@@ -381,7 +465,7 @@ def main() -> None:
         r["max_abs_err"] = errs[r["name"]]
         say("timings", f"{r['name']} {r['shape']}: kernel {r['ms']:.5f} ms, "
                        f"plain {r['plain_ms']:.5f} ms, library {_ms(r['library_ms'])}, bound "
-                       f"{r['bound_ms']:.5f} ms by {r['bound_by']}; per call with host "
+                       f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({_rates(r)}); per call with host "
                        f"overhead: kernel {r['call_ms']:.5f}, plain {r['plain_call_ms']:.5f}, "
                        f"library {_ms(r['library_call_ms'])}")
     n = SPIN_COUNTS["sessions"]
@@ -551,8 +635,19 @@ def _coded_gradient_check(dev, cfg) -> None:
     torch.cuda.empty_cache()
 
 
-def _training_timings(dev, cfg, randn, heads_view) -> list:
-    """Timing rows of the training path's kernels, at its shapes."""
+def _rates(row) -> str:
+    """Achieved operation and byte rates of a timing row, and its share of the bound."""
+    s = row["ms"] / 1e3
+    return (f"{row['ops'] / s / 1e12:.2f} TFLOP/s, {row['bytes'] / s / 1e9:.1f} GB/s, "
+            f"{row['bound_ms'] / row['ms']:.3f} of the bound")
+
+
+def _attention_timings(cfg, heads_view, ptxas) -> list:
+    """Both attention kernels at the serving prefill's shape (forward) and the
+    coded step's (forward with lse, backward), in bf16 (tensor cores) and f32
+    (CUDA cores), each beside SDPA or its autograd, with its achieved rates and
+    ptxas line.  Returns the JSON rows: the bf16 forward at the prefill's
+    shape and the bf16 backward."""
     import torch
     import torch.nn.functional as F
 
@@ -561,6 +656,68 @@ def _training_timings(dev, cfg, randn, heads_view) -> list:
         flash_attention,
         flash_attention_bwd,
     )
+
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    replaces = "src/repro/kernels/flash_attention/flash_attention.py:45"
+    rows = []
+
+    def report(row, what, *labels):
+        built = "; ".join(f"{label}: {ptxas.get(label, 'not in the build log')}"
+                          for label in labels)
+        say("timings", f"{what} {row['shape']}: kernel {row['ms']:.5f} ms, {_rates(row)} "
+                       f"({row['bound_ms']:.5f} ms by {row['bound_by']}); library "
+                       f"{_ms(row['library_ms'])} (kernel / library "
+                       f"{row['ms'] / row['library_ms']:.3f}); plain {row['plain_ms']:.5f} ms; "
+                       f"ptxas {built}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        op_type, sfx = ("bf16_tensor", "bf16_kernel<") if bf16 else ("f32", "kernel<float, ")
+        for b, s, with_lse in ((BATCH, PROMPT_LEN, False), (TRAIN_SEQS, TRAIN["seq"], True)):
+            q = heads_view(b, hq, s, dh, dtype)
+            k, v = (heads_view(b, hkv, s, dh, dtype) for _ in range(2))
+            pairs = b * hq * s * (s + 1) // 2  # causal (q, k) pairs
+            n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, q)) + \
+                (4 * b * hq * s if with_lse else 0)
+            row = _timed(
+                "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu", replaces,
+                tuple(q.shape), lambda: flash_attention(q, k, v, causal=True, return_lse=with_lse),
+                lambda: fa_ref.attention(q, k, v, causal=True),
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+                n_bytes, 4 * dh * pairs, op_type, iters=100)  # q.k and p.v
+            report(row, f"forward {_dtype_name(dtype)}{' with lse' if with_lse else ''}",
+                   f"attn_fwd_{sfx}{dh}>")
+            if bf16 and not with_lse:
+                rows.append(row)
+
+        q, do = (heads_view(TRAIN_SEQS, hq, TRAIN["seq"], dh, dtype) for _ in range(2))
+        k, v = (heads_view(TRAIN_SEQS, hkv, TRAIN["seq"], dh, dtype) for _ in range(2))
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        y_plain = fa_ref.attention(qr, kr, vr, causal=True)
+        y_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+        pairs = TRAIN_SEQS * hq * TRAIN["seq"] * (TRAIN["seq"] + 1) // 2
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, do, q, k, v)) + \
+            lse.numel() * 4
+        row = _timed(
+            "flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces, tuple(q.shape), lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+            lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do, retain_graph=True),
+            lambda: torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True),
+            n_bytes, 10 * dh * pairs, op_type, iters=100)  # S again, dP, dV, dQ, dK
+        report(row, f"backward {_dtype_name(dtype)}", f"attn_bwd_dq_{sfx}{dh}>",
+               f"attn_bwd_dkdv_{sfx}{dh}>")
+        if bf16:
+            rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _training_timings(dev, cfg, randn) -> list:
+    """Timing rows of the training path's other kernels, at its shapes."""
+    import torch
+    import torch.nn.functional as F
+
     from repro_torch.kernels.gc_coding import coded_combine_tree
     from repro_torch.kernels.gc_coding import ref as gc_ref
     from repro_torch.kernels.gc_coding.gc_coding import coded_combine
@@ -619,24 +776,6 @@ def _training_timings(dev, cfg, randn, heads_view) -> list:
         lambda: torch.autograd.grad(y_lib, (xr, gr), dy, retain_graph=True),
         3 * x.numel() * x.element_size() + 2 * g.numel() * g.element_size(),
         10 * x.numel(), "f32", iters=200,
-    ))
-
-    hq, hkv, dh, s = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, TRAIN["seq"]
-    q, k, v, do = (heads_view(TRAIN_SEQS, h, s, dh, torch.bfloat16) for h in (hq, hkv, hkv, hq))
-    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
-    y_plain = fa_ref.attention(qr, kr, vr, causal=True)
-    y_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
-    pairs = TRAIN_SEQS * hq * s * (s + 1) // 2
-    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, do, q, k, v)) + \
-        lse.numel() * 4
-    rows.append(_timed(
-        "flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "src/repro/kernels/flash_attention/flash_attention.py:45", tuple(q.shape),
-        lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
-        lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do, retain_graph=True),
-        lambda: torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True),
-        n_bytes, 10 * dh * pairs, "bf16_tensor", iters=100,
     ))
     return rows
 
@@ -1173,7 +1312,7 @@ def _category(name: str) -> str:
         return "rmsnorm backward kernels"
     if "coded_combine_kernel" in name:
         return "coded_combine kernel"
-    if "attn_fwd_kernel" in name:
+    if "attn_fwd" in name:
         return "flash_attention kernel"
     if "rmsnorm_kernel" in name:
         return "rmsnorm kernel"

@@ -36,7 +36,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 class BuildInfo:
     path: Path
     seconds: float       # 0.0 when an earlier build was reused
-    ptxas_log: str       # nvcc's -Xptxas -v lines (registers, shared memory, spills)
+    ptxas_log: str       # nvcc's -Xptxas -v lines (registers, shared memory, spills),
+                         # kept beside the library for a reused build
 
 
 def _nvcc() -> str:
@@ -81,9 +82,9 @@ def _run_all(cmds: list[list[str]]) -> str:
 def build() -> BuildInfo:
     """Compile the kernel library if this source tree has not been built yet."""
     out_dir = BUILD_ROOT / _digest()
-    lib = out_dir / LIB_NAME
+    lib, log_path = out_dir / LIB_NAME, out_dir / "ptxas.log"
     if lib.exists():
-        return BuildInfo(lib, 0.0, "")
+        return BuildInfo(lib, 0.0, log_path.read_text() if log_path.exists() else "")
     nvcc = _nvcc()
     tmp = out_dir / f"tmp-{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
@@ -95,6 +96,8 @@ def build() -> BuildInfo:
     ])
     tmp_lib = tmp / LIB_NAME
     log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib), *map(str, objs)]])
+    (tmp / "ptxas.log").write_text(log)
+    os.replace(tmp / "ptxas.log", log_path)
     os.replace(tmp_lib, lib)  # atomic: a concurrent build sees a whole library or none
     shutil.rmtree(tmp, ignore_errors=True)
     return BuildInfo(lib, time.perf_counter() - t0, log)

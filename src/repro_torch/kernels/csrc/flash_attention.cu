@@ -3,36 +3,65 @@
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/flash_attention.py::_attn_kernel (forward only).
 //
-// Bound: at the serving shapes (b=8, 14 q-heads, 2 kv-heads, s=500, dh=64, bf16)
-// the function moves ~16 MB and does ~3.6 GFLOP of products, so against the
-// tensor-core peak it is bound by device-memory bytes.  This first kernel does
-// its products on the CUDA cores in f32, so in practice the FMA rate and the
-// shared-memory reads that feed it bound it; wgmma/TMA is later work.
+// Bound: at the serving prefill of qwen2-0.5b (q (8, 14, 500, 64), kv (8, 2,
+// 500, 64), causal, bf16) the function reads q, k and v and writes o, 16.4 MB:
+// 4.9 us at 3.35 TB/s.  Its products over the causal half, 3.6 GFLOP, take 3.6 us
+// even at the 989 TFLOP/s bf16 tensor-core peak, so it is bound by bytes.  At
+// the coded training step's q (128, 14, 64, 64) with lse it moves 21.4 MB (6.4
+// us) for 1.0 GFLOP.
 //
-// Design:
-// * The TPU kernel walks kv blocks as a sequential grid axis and carries
-//   (m, l, acc) in VMEM scratch between grid steps.  CUDA blocks share nothing,
-//   so one block owns one (batch, q-head, 64-row q tile) and loops over kv tiles
-//   of 32 keys itself, keeping m, l and acc in registers.
-// * Each query row belongs to DH/32 neighbouring threads; a thread owns 32 of
-//   the row's DH elements, in runs of 4 so that it reads K and V from shared
-//   memory 16 bytes at a time.  The partial dot products meet through shuffles.
-// * K and V tiles are staged in shared memory as f32, read once per block from
-//   the (b, hkv, sk, dh) cache: q-head h reads kv-head h / (hq / hkv), so the
-//   GQA repeat is never materialised.
-// * kv tiles wholly outside the causal / sliding-window band, or past valid_k,
-//   are skipped (the TPU kernel computes and masks them).  Within a tile, keys
-//   are masked per row; a fully masked row returns 0.
-// * q, k, v and o are addressed through (batch, head, seq) strides with a
-//   contiguous last dim, so callers pass head-transposed views without copies.
-// * q tiles are issued last-first, so the longest causal tiles start first.
-// * When a gradient is wanted, each row's log-sum-exp of its scaled scores goes
-//   to an f32 (b, hq, sq) buffer for the backward (flash_attention_bwd.cu);
-//   a fully masked row stores +inf, so that its probabilities come out 0.
+// Two kernels, chosen by dtype:
+// * bf16 (attn_fwd_bf16_kernel), the served and trained dtype, on the tensor
+//   cores with mma.sync.m16n8k16 (helpers in mma.cuh).  The first port did every
+//   product as f32 FMAs on the CUDA cores (67 TFLOP/s at most) fed from f32
+//   tiles in shared memory, and took 0.333 ms at the serving shape, 15.8x
+//   SDPA's time; the CUDA-core rate and the shared-memory traffic were what
+//   bound it, not the tensor cores'.
+//   - One block per (batch, q-head, 64-row q tile), 4 warps of 16 query rows.
+//     The q tile is the grid's slowest axis, issued last-first, so every
+//     longest causal tile starts before any shorter one and the short ones
+//     fill the tail (the f32 kernel puts the q tile on the fastest axis).
+//     The TPU kernel walks kv blocks as a sequential grid axis with (m, l, acc)
+//     in VMEM scratch; here the block loops over kv tiles itself with m, l and
+//     acc in registers.
+//   - The q tile goes through shared memory once into A fragments that stay in
+//     registers.  K and V tiles of 64 keys are staged in bf16 in a two-stage
+//     cp.async ring, so the next tile loads during this tile's math; the ring
+//     and the q tile take 46 KB at dh 64 and 87 KB at dh 128 (dynamic shared
+//     memory).  Rows are padded by 16 bytes, so ldmatrix has no bank conflicts.
+//   - S = Q.K^T by mma.sync with K read by ldmatrix; the online softmax runs in
+//     f32 on the accumulator fragments (row max and sum across the lane quad by
+//     two shuffles, exp2 with scale*log2(e) folded in).  P is rounded to bf16
+//     in registers and fed straight back as the A operand of O += P.V, V read by
+//     ldmatrix.trans: P never goes through shared memory.
+//   - Per-element masks (causal diagonal, window edge, valid_k, the last q
+//     tile's rows) apply only on tiles that cross an edge; kv tiles wholly
+//     outside the band are skipped (the TPU kernel computes and masks them).
+//     A fully masked row keeps m = -inf guards, returns 0 and lse +inf.
+//   - Epilogue: O / l in f32, stored as bf16 through the warp's rows of the q
+//     tile with 16-byte stores.
+//   - Why mma.sync and not wgmma yet: the function is bound by bytes at these
+//     shapes, and mma.sync already lifts the CUDA-core limit; wgmma with TMA and
+//     warp specialisation reaches the last third of the tensor-core rate, which
+//     pays only where products dominate (long sequences, dh 128 at large batch).
+// * f32 (attn_fwd_kernel), the dtype of the logits checks, as the JAX kernel
+//   contracts f32 inputs in f32: f32 FMAs on the CUDA cores, kv tiles of 32
+//   keys staged as f32, a query row owned by dh/32 neighbouring threads, each
+//   holding 32 of its elements in runs of 4 and meeting the others by shuffles.
+//
+// Both take q, k, v and o through (batch, head, seq) strides with a contiguous
+// last dim, so callers pass head-transposed views without copies; q-head h reads
+// kv-head h / (hq / hkv), so the GQA repeat is never materialised.  The bf16
+// kernel moves 16 bytes per cp.async, so the wrapper checks 16-byte aligned
+// pointers and strides.  When a gradient is wanted, each row's log-sum-exp of
+// its scaled scores goes to an f32 (b, hq, sq) buffer for the backward
+// (flash_attention_bwd.cu); a fully masked row stores +inf, so that its
+// probabilities come out 0.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -170,10 +199,182 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
+// -- bf16 on the tensor cores --------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileQ = 16 * kWarps;  // query rows per block, 16 a warp
+constexpr int kTileK = 64;           // keys per staged kv tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+constexpr int bf16_smem_bytes() {  // the q tile and two stages of (K, V)
+  return (kTileQ + 2 * 2 * kTileK) * mma::Tile<DH>::kStride * (int)sizeof(bf16);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                     const AttnArgs a) {
+  constexpr int S = mma::Tile<DH>::kStride;
+  constexpr int KC = DH / 16;     // k-chunks of a q.k product
+  constexpr int NT = kTileK / 8;  // n-tiles of 8 keys
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = qs + kTileQ * S;  // stage i: K at ring + i * 2 * kTileK * S, then V
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, bi = blockIdx.y;
+  const int kh = h / (a.hq / a.hkv);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTileQ;
+  const mma::Band band{a.sq, a.valid_k, a.causal, a.window};
+  int kv_begin, kv_end;
+  const int n_tiles = band.key_tiles(q0, kTileQ, kTileK, &kv_begin, &kv_end);
+
+  const bf16* kb = k + bi * a.k.b + kh * a.k.h;
+  const bf16* vb = v + bi * a.v.b + kh * a.v.h;
+  auto load_kv = [&](int i) {
+    bf16* ks = ring + (i & 1) * 2 * kTileK * S;
+    const int k0 = kv_begin + i * kTileK;
+    mma::load_tile<kTileK, DH, kThreads>(ks, kb, a.k.s, k0, kv_end, tid);
+    mma::load_tile<kTileK, DH, kThreads>(ks + kTileK * S, vb, a.v.s, k0, kv_end, tid);
+  };
+  mma::load_tile<kTileQ, DH, kThreads>(qs, q + bi * a.q.b + h * a.q.h, a.q.s, q0, a.sq, tid);
+  mma::cp_async_commit();
+  if (n_tiles > 0) load_kv(0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();  // the q tile has landed; the first kv tile may not have
+  __syncthreads();
+  mma::AFrags<DH, true> qf;
+  qf.init(qs + warp * 16 * S, lane);
+
+  // this thread's two rows (g and g + 8 of the warp's 16): running max of the
+  // raw scores, sum of exp, and the O accumulator's 16 x DH tile
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const float sl2 = a.scale * kLog2e;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_kv(i + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // tile i has landed
+    __syncthreads();
+    const bf16* ks = ring + (i & 1) * 2 * kTileK * S;
+    const int k0 = kv_begin + i * kTileK;
+
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    mma::mma_abt<NT, KC, DH>(s, qf, ks, lane);
+    if (band.crosses(q0, kTileQ, k0, kTileK)) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!band.visible(e < 2 ? row0 : row1, k0 + n * 8 + 2 * t + (e & 1)))
+            s[n][e] = -INFINITY;
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {  // across the quad that shares the rows
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // every key so far masked: exponents from 0, so exp2(-inf) = 0, not NaN
+    const float base0 = mx0 == -INFINITY ? 0.f : mx0 * sl2;
+    const float base1 = mx1 == -INFINITY ? 0.f : mx1 * sl2;
+    const float alpha0 = exp2f(m0 * sl2 - base0), alpha1 = exp2f(m1 * sl2 - base1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      s[n][0] = exp2f(fmaf(s[n][0], sl2, -base0));
+      s[n][1] = exp2f(fmaf(s[n][1], sl2, -base0));
+      s[n][2] = exp2f(fmaf(s[n][2], sl2, -base1));
+      s[n][3] = exp2f(fmaf(s[n][3], sl2, -base1));
+      sum0 += s[n][0] + s[n][1];
+      sum1 += s[n][2] + s[n][3];
+    }
+    l0 = l0 * alpha0 + sum0;  // this lane's part; the quad's parts meet at the end
+    l1 = l1 * alpha1 + sum1;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n) {
+      acc[n][0] *= alpha0;
+      acc[n][1] *= alpha0;
+      acc[n][2] *= alpha1;
+      acc[n][3] *= alpha1;
+    }
+    mma::mma_pv<NT / 2, DH>(acc, s, ks + kTileK * S, lane);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  if (lse && t == 0) {
+    const long long rows = ((long long)bi * a.hq + h) * a.sq;
+    if (row0 < a.sq) lse[rows + row0] = l0 == 0.f ? INFINITY : m0 * a.scale + logf(l0);
+    if (row1 < a.sq) lse[rows + row1] = l1 == 0.f ? INFINITY : m1 * a.scale + logf(l1);
+  }
+  // fully masked rows: acc is 0 and so is the output
+  mma::store_rows<DH>(acc, l0 == 0.f ? 0.f : 1.f / l0, l1 == 0.f ? 0.f : 1.f / l1,
+                      qs + warp * 16 * S, o + bi * a.o.b + h * a.o.h, a.o.s, q0 + warp * 16,
+                      a.sq, lane);
+}
+
+template <int DH>
+cudaError_t launch_bf16_dh(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                           int b, const AttnArgs& a, cudaStream_t stream) {
+  constexpr int smem = bf16_smem_bytes<DH>();
+  if (cudaError_t err = cudaFuncSetAttribute(
+          attn_fwd_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return err;
+  // q tiles on the slowest axis, last first: every (head, batch)'s longest
+  // causal tile is issued before any shorter one
+  const dim3 grid(a.hq, b, (a.sq + kTileQ - 1) / kTileQ);
+  attn_fwd_bf16_kernel<DH><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                        int dh, const AttnArgs& a, cudaStream_t stream) {
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  bf16* ot = static_cast<bf16*>(o);
+  switch (dh) {
+    case 32: return launch_bf16_dh<32>(qt, kt, vt, ot, lse, b, a, stream);
+    case 64: return launch_bf16_dh<64>(qt, kt, vt, ot, lse, b, a, stream);
+    case 128: return launch_bf16_dh<128>(qt, kt, vt, ot, lse, b, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q: (b, hq, sq, dh), k/v: (b, hkv, sk, dh), o: like q; each given by its
-// (batch, head, seq) strides in elements with a contiguous last dim.  Keys at
+// (batch, head, seq) strides in elements with a contiguous last dim (in bf16,
+// 16-byte aligned rows: pointers and strides the caller has checked).  Keys at
 // positions >= valid_k are masked.  lse: (b, hq, sq) f32 contiguous, or null when
 // no gradient is wanted.  Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(
@@ -192,6 +393,6 @@ extern "C" int flash_attention_fwd(
                    {o_sb, o_sh, o_ss}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch<float>(q, k, v, o, lse, b, dh, a, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(q, k, v, o, lse, b, dh, a, s);
+  if (dtype == kBFloat16) return launch_bf16(q, k, v, o, lse, b, dh, a, s);
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-// Blocked (flash) GQA attention backward for Hopper (sm_90a), FA2-style, in f32.
+// Blocked (flash) GQA attention backward for Hopper (sm_90a), FA2-style.
 //
 // Given q, k, v, the forward's output o, its row log-sum-exp lse and dO:
 //   p = exp(scale * q.k - lse)            (0 where masked)
@@ -10,32 +10,52 @@
 // src/repro/kernels/flash_attention/flash_attention.py::_attn_kernel, which has
 // none: the JAX package differentiates its jnp path instead (ROADMAP C-2).
 //
-// Bound: at the training shapes of the slice (128 sequences of 64 tokens, 14
-// q-heads and 2 kv-heads of 64, bf16) the function moves ~30 MB and does ~2.5
-// GFLOP of products, so against the tensor-core peak it is bound by device-memory
-// bytes.  Like the forward, this first kernel does its products on the CUDA
-// cores in f32, so the FMA rate and the shared-memory reads bound it in
-// practice; mma.sync/wgmma is later work.
+// Bound: at the coded training step of qwen2-0.5b (q (128, 14, 64, 64), kv
+// (128, 2, 64, 64), causal, bf16) the function reads q, k, v, o, dO and lse
+// and writes dQ, dK and dV, 67.6 MB: 20.2 us at 3.35 TB/s.  Its five products
+// over the causal half, 2.5 GFLOP, take 2.6 us at the bf16 tensor-core peak, so
+// it is bound by bytes.
 //
-// Design, two launches:
-// * attn_bwd_dq: one block per (batch, q-head, 64-row q tile), with the
-//   forward's thread layout: a query row belongs to DH/32 neighbouring threads,
-//   each owning 32 of its elements in runs of 4.  The block computes D for its
-//   rows (and stores it for the second launch), then walks the kv tiles of 32
-//   keys that the causal / window band and valid_k leave, staged in shared
-//   memory as f32, recomputing p from lse key by key and accumulating dQ in
-//   registers.
-// * attn_bwd_dkdv: one block per (batch, kv-head, 64-key tile); a key row is
-//   owned the same way and keeps its k, v, dK and dV in registers.  The block
-//   walks every q-head of its GQA group and the q tiles of 32 rows in the band,
-//   staging q, dO, lse and D in shared memory.  The group's sum lands in one
-//   block, so no atomics are needed and the result is deterministic.
-// * Both take (batch, head, seq) strides with a contiguous last dim, as the
-//   forward does, and skip tiles that lie wholly outside the band.
+// Two launches, deterministic, no atomics; two kernel pairs, chosen by dtype:
+// * bf16 (attn_bwd_dq_bf16_kernel, attn_bwd_dkdv_bf16_kernel), the trained
+//   dtype, on the tensor cores with mma.sync.m16n8k16 (mma.cuh), in the forward's
+//   tile design.  The first port did every product as f32 FMAs on the CUDA
+//   cores fed from f32 tiles in shared memory, 0.571 ms at the training shape,
+//   4.2x autograd of SDPA.
+//   - Tiles sit on the grid's slowest axis, the longest causal ones first, as
+//     in the forward.
+//   - dq: one block per (batch, q-head, 64-row q tile), 4 warps of 16 rows.  It
+//     first computes D = rowsum(dO * o) in f32 for its rows and stores it for
+//     the second launch.  Q and dO stay in registers as A fragments (in shared
+//     memory at dh 128, where the registers go to the accumulators); K and V
+//     tiles of 64 keys come through a two-stage cp.async ring.  S = Q K^T, then
+//     P = exp2(S * scale * log2(e) - lse * log2(e)), masked, and dP = dO V^T;
+//     dS = P * (dP - D) is rounded to bf16 in registers and is the A operand of
+//     dQ += dS K (K read by ldmatrix.trans).  dQ * scale is stored once.
+//   - dkdv: one block per (batch, kv-head, 64-key tile), 4 warps of 16 keys.
+//     K and V stay resident (A fragments in registers; in shared memory at dh
+//     128).  The block walks every q-head of its GQA group and the band's q
+//     tiles, with Q, dO, lse and D in a cp.async ring: S^T = K Q^T, P^T, dV +=
+//     P^T dO with P^T a bf16 A fragment from registers, dP^T = V dO^T, dS^T =
+//     P^T * (dP^T - D) and dK += dS^T Q.  The group's sum lands in one block's
+//     f32 registers, stored once.
+//   - Masks apply per element only on tiles that cross an edge; tiles wholly
+//     outside the band are skipped.  Rows of a fully masked query have lse +inf
+//     from the forward, so their P is 0.  Shared memory: 56 KB (dq) and 56 KB
+//     (dkdv) at dh 64, dynamic.  mma.sync rather than wgmma: the bound is bytes
+//     at these shapes (see flash_attention.cu).
+// * f32 (attn_bwd_dq_kernel, attn_bwd_dkdv_kernel), the dtype of the gradient
+//   checks: f32 FMAs on the CUDA cores with the f32 forward's thread layout (a
+//   row owned by dh/32 neighbouring threads, tiles of 32 keys or queries staged
+//   as f32).
+// * All take (batch, head, seq) strides with a contiguous last dim; the bf16
+//   kernels move 16 bytes per cp.async, so the wrapper checks 16-byte aligned
+//   pointers and strides.
 
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -301,12 +321,290 @@ cudaError_t launch(const void* const* ptrs, float* delta, int b, int dh, const B
   }
 }
 
+// -- bf16 on the tensor cores --------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;  // dq: query rows per block; dkdv: per staged q tile
+constexpr int kKeys = 16 * kWarps;  // dkdv: keys per block; dq: per staged kv tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+constexpr int bf16_smem_bytes() {
+  // dq: Q, dO and two stages of (K, V), then D of the rows;
+  // dkdv: K, V and two stages of (Q, dO), then two stages of (lse, D)
+  return 6 * 64 * mma::Tile<DH>::kStride * (int)sizeof(bf16) + 4 * 64 * (int)sizeof(float);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        float* __restrict__ delta, bf16* __restrict__ dq, const BwdArgs a) {
+  constexpr int S = mma::Tile<DH>::kStride;
+  constexpr int KC = DH / 16;
+  constexpr int NT = kKeys / 8;
+  constexpr bool kResident = DH <= 64;  // Q and dO fragments in registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + kRows * S;
+  bf16* ring = dos + kRows * S;  // stage i: K at ring + i * 2 * kKeys * S, then V
+  float* dsm = reinterpret_cast<float*>(ring + 4 * kKeys * S);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, bi = blockIdx.y;
+  const int kh = h / (a.hq / a.hkv);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // the longest causal tiles first
+  const mma::Band band{a.sq, a.valid_k, a.causal, a.window};
+  int kv_begin, kv_end;
+  const int n_tiles = band.key_tiles(q0, kRows, kKeys, &kv_begin, &kv_end);
+
+  const bf16* ob = o + bi * a.o.b + h * a.o.h;
+  const bf16* db = dout + bi * a.dout.b + h * a.dout.h;
+  const bf16* kb = k + bi * a.k.b + kh * a.k.h;
+  const bf16* vb = v + bi * a.v.b + kh * a.v.h;
+  auto load_kv = [&](int i) {
+    bf16* ks = ring + (i & 1) * 2 * kKeys * S;
+    const int k0 = kv_begin + i * kKeys;
+    mma::load_tile<kKeys, DH, kThreads>(ks, kb, a.k.s, k0, kv_end, tid);
+    mma::load_tile<kKeys, DH, kThreads>(ks + kKeys * S, vb, a.v.s, k0, kv_end, tid);
+  };
+  mma::load_tile<kRows, DH, kThreads>(qs, q + bi * a.q.b + h * a.q.h, a.q.s, q0, a.sq, tid);
+  mma::load_tile<kRows, DH, kThreads>(dos, db, a.dout.s, q0, a.sq, tid);
+  mma::cp_async_commit();
+  if (n_tiles > 0) load_kv(0);
+  mma::cp_async_commit();
+
+  // D = rowsum(dO * o) in f32, two threads a row, while the tiles load
+  const long long rows = ((long long)bi * a.hq + h) * a.sq;
+  {
+    const int r = tid >> 1, half = tid & 1, row = q0 + r;
+    float d = 0.f;
+    if (row < a.sq) {
+      const uint4* op = reinterpret_cast<const uint4*>(ob + row * a.o.s + half * (DH / 2));
+      const uint4* dp = reinterpret_cast<const uint4*>(db + row * a.dout.s + half * (DH / 2));
+#pragma unroll
+      for (int c = 0; c < DH / 16; ++c) {
+        const uint4 ov = op[c], dv = dp[c];
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 of = __bfloat1622float2(o2[j]), df = __bfloat1622float2(d2[j]);
+          d = fmaf(of.x, df.x, fmaf(of.y, df.y, d));
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if (half == 0) {
+      dsm[r] = d;
+      if (row < a.sq) delta[rows + row] = d;
+    }
+  }
+  mma::cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+  mma::AFrags<DH, kResident> qf, dof;
+  qf.init(qs + warp * 16 * S, lane);
+  dof.init(dos + warp * 16 * S, lane);
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const float sl2 = a.scale * kLog2e;
+  // rows past sq: lse +inf, so P = 0
+  const float lse0 = row0 < a.sq ? lse[rows + row0] * kLog2e : INFINITY;
+  const float lse1 = row1 < a.sq ? lse[rows + row1] * kLog2e : INFINITY;
+  const float d0 = dsm[warp * 16 + g], d1 = dsm[warp * 16 + g + 8];
+  float acc[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) load_kv(i + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // tile i has landed
+    __syncthreads();
+    const bf16* ks = ring + (i & 1) * 2 * kKeys * S;
+    const int k0 = kv_begin + i * kKeys;
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    mma::mma_abt<NT, KC, DH>(s, qf, ks, lane);           // S = Q K^T
+    mma::mma_abt<NT, KC, DH>(dp, dof, ks + kKeys * S, lane);  // dP = dO V^T
+    const bool edge = band.crosses(q0, kRows, k0, kKeys);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(fmaf(s[n][e], sl2, -(e < 2 ? lse0 : lse1)));
+        if (edge && !band.visible(e < 2 ? row0 : row1, k0 + n * 8 + 2 * t + (e & 1))) p = 0.f;
+        s[n][e] = p * (dp[n][e] - (e < 2 ? d0 : d1));  // dS
+      }
+    mma::mma_pv<NT / 2, DH>(acc, s, ks, lane);  // dQ += dS K
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  mma::store_rows<DH>(acc, a.scale, a.scale, qs + warp * 16 * S, dq + bi * a.dq.b + h * a.dq.h,
+                      a.dq.s, q0 + warp * 16, a.sq, lane);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, const BwdArgs a) {
+  constexpr int S = mma::Tile<DH>::kStride;
+  constexpr int KC = DH / 16;
+  constexpr int NT = kRows / 8;
+  constexpr bool kResident = DH <= 64;  // K and V fragments in registers
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + kKeys * S;
+  bf16* ring = vs + kKeys * S;  // stage i: Q at ring + i * 2 * kRows * S, then dO
+  float* fring = reinterpret_cast<float*>(ring + 4 * kRows * S);  // stage i: lse, then D
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int kh = blockIdx.x, bi = blockIdx.y;
+  const int group = a.hq / a.hkv;
+  const int k0 = blockIdx.z * kKeys;  // the first key tiles, which most queries see, first
+  const mma::Band band{a.sq, a.valid_k, a.causal, a.window};
+  int q_begin = 0;
+  const int n_q = band.query_tiles(k0, kKeys, kRows, &q_begin);
+  const int total = group * n_q;  // (q-head, q tile) steps
+
+  auto load_q = [&](int it) {
+    const int h = kh * group + it / n_q, qs0 = q_begin + (it % n_q) * kRows;
+    bf16* qst = ring + (it & 1) * 2 * kRows * S;
+    mma::load_tile<kRows, DH, kThreads>(qst, q + bi * a.q.b + h * a.q.h, a.q.s, qs0, a.sq, tid);
+    mma::load_tile<kRows, DH, kThreads>(qst + kRows * S, dout + bi * a.dout.b + h * a.dout.h,
+                                        a.dout.s, qs0, a.sq, tid);
+    float* fst = fring + (it & 1) * 2 * kRows;
+    const long long rows = ((long long)bi * a.hq + h) * a.sq + qs0;
+    for (int r = tid; r < kRows; r += kThreads) {
+      const bool ok = qs0 + r < a.sq;
+      mma::cp_async_4(fst + r, lse + (ok ? rows + r : 0), ok);
+      mma::cp_async_4(fst + kRows + r, delta + (ok ? rows + r : 0), ok);
+    }
+  };
+  mma::load_tile<kKeys, DH, kThreads>(ks, k + bi * a.k.b + kh * a.k.h, a.k.s, k0, a.sk, tid);
+  mma::load_tile<kKeys, DH, kThreads>(vs, v + bi * a.v.b + kh * a.v.h, a.v.s, k0, a.sk, tid);
+  mma::cp_async_commit();
+  if (total > 0) load_q(0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();  // K and V have landed
+  __syncthreads();
+  mma::AFrags<DH, kResident> kf, vf;
+  kf.init(ks + warp * 16 * S, lane);
+  vf.init(vs + warp * 16 * S, lane);
+  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
+  const float sl2 = a.scale * kLog2e;
+  float dka[DH / 8][4], dva[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    if (it + 1 < total) load_q(it + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // step it has landed
+    __syncthreads();
+    const bf16* qst = ring + (it & 1) * 2 * kRows * S;
+    const bf16* dost = qst + kRows * S;
+    const float* fst = fring + (it & 1) * 2 * kRows;
+    const int qs0 = q_begin + (it % n_q) * kRows;
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    mma::mma_abt<NT, KC, DH>(s, kf, qst, lane);  // S^T = K Q^T: rows keys, columns queries
+    const bool edge = band.crosses(qs0, kRows, k0, kKeys);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + 2 * t + (e & 1);
+        float p = exp2f(fmaf(s[n][e], sl2, -fst[c] * kLog2e));
+        if (edge && !band.visible(qs0 + c, e < 2 ? key0 : key1)) p = 0.f;
+        s[n][e] = p;
+      }
+    mma::mma_pv<NT / 2, DH>(dva, s, dost, lane);  // dV += P^T dO
+    float dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
+    mma::mma_abt<NT, KC, DH>(dp, vf, dost, lane);  // dP^T = V dO^T
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[n][e] *= dp[n][e] - fst[kRows + n * 8 + 2 * t + (e & 1)];  // dS^T
+    mma::mma_pv<NT / 2, DH>(dka, s, qst, lane);  // dK += dS^T Q
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  mma::store_rows<DH>(dka, a.scale, a.scale, ks + warp * 16 * S, dk + bi * a.dk.b + kh * a.dk.h,
+                      a.dk.s, k0 + warp * 16, a.sk, lane);
+  mma::store_rows<DH>(dva, 1.f, 1.f, vs + warp * 16 * S, dv + bi * a.dv.b + kh * a.dv.h, a.dv.s,
+                      k0 + warp * 16, a.sk, lane);
+}
+
+template <int DH>
+cudaError_t launch_bf16_dh(const void* const* ptrs, float* delta, int b, const BwdArgs& a,
+                           cudaStream_t stream) {
+  const bf16* q = static_cast<const bf16*>(ptrs[0]);
+  const bf16* k = static_cast<const bf16*>(ptrs[1]);
+  const bf16* v = static_cast<const bf16*>(ptrs[2]);
+  const bf16* o = static_cast<const bf16*>(ptrs[3]);
+  const bf16* dout = static_cast<const bf16*>(ptrs[4]);
+  const float* lse = static_cast<const float*>(ptrs[5]);
+  bf16* dq = static_cast<bf16*>(const_cast<void*>(ptrs[6]));
+  bf16* dk = static_cast<bf16*>(const_cast<void*>(ptrs[7]));
+  bf16* dv = static_cast<bf16*>(const_cast<void*>(ptrs[8]));
+  constexpr int smem = bf16_smem_bytes<DH>();
+  if (a.sq > 0) {  // the dkdv launch reads the D that this one writes
+    if (cudaError_t err = cudaFuncSetAttribute(
+            attn_bwd_dq_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+      return err;
+    const dim3 grid_q(a.hq, b, (a.sq + kRows - 1) / kRows);
+    attn_bwd_dq_bf16_kernel<DH><<<grid_q, kThreads, smem, stream>>>(q, k, v, o, dout, lse, delta,
+                                                                    dq, a);
+    if (cudaError_t err = cudaGetLastError()) return err;
+  }
+  if (a.sk == 0) return cudaSuccess;
+  if (cudaError_t err = cudaFuncSetAttribute(
+          attn_bwd_dkdv_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return err;
+  const dim3 grid_kv(a.hkv, b, (a.sk + kKeys - 1) / kKeys);
+  attn_bwd_dkdv_bf16_kernel<DH><<<grid_kv, kThreads, smem, stream>>>(q, k, v, dout, lse, delta,
+                                                                     dk, dv, a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bf16(const void* const* ptrs, float* delta, int b, int dh, const BwdArgs& a,
+                        cudaStream_t stream) {
+  switch (dh) {
+    case 32: return launch_bf16_dh<32>(ptrs, delta, b, a, stream);
+    case 64: return launch_bf16_dh<64>(ptrs, delta, b, a, stream);
+    case 128: return launch_bf16_dh<128>(ptrs, delta, b, a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // ptrs: q, k, v, o, dout, lse, dq, dk, dv.  q, o, dout, dq: (b, hq, sq, dh);
 // k, v, dk, dv: (b, hkv, sk, dh); each given by its (batch, head, seq) strides in
 // elements, in that order, in `strides` (8 x 3 values), with a contiguous last
-// dim.  lse: (b, hq, sq) f32 from the forward; delta: (b, hq, sq) f32 scratch.
+// dim (in bf16, 16-byte aligned rows: pointers and strides the caller has
+// checked).  lse: (b, hq, sq) f32 from the forward; delta: (b, hq, sq) f32 scratch.
 // Returns the first launch error (0 on success).
 extern "C" int flash_attention_bwd(const void* const* ptrs, float* delta, const long long* strides,
                                    int b, int hq, int hkv, int sq, int sk, int dh, int causal,
@@ -320,6 +618,6 @@ extern "C" int flash_attention_bwd(const void* const* ptrs, float* delta, const 
   for (int i = 0; i < 8; ++i) *st[i] = {strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32) return launch<float>(ptrs, delta, b, dh, a, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(ptrs, delta, b, dh, a, s);
+  if (dtype == kBFloat16) return launch_bf16(ptrs, delta, b, dh, a, s);
   return cudaErrorInvalidValue;
 }

@@ -5,6 +5,13 @@ Replaces ``src/repro/kernels/flash_attention/flash_attention.py::_attn_kernel``,
 and adds the backward that the JAX package leaves to ``jax.grad`` of its jnp
 path.  The sources' headers give what bounds them and how their designs
 answer that.
+
+Each C entry dispatches on the dtype: bf16, the dtype the model serves and
+trains in, runs on the tensor cores (``mma.sync``, ``cp.async`` staging);
+f32, the dtype of the logits and gradient checks, runs on the CUDA cores in
+f32, as the JAX kernel contracts f32 inputs in f32.  The bf16 kernels move
+16 bytes per copy, so their tensors must have 16-byte aligned rows
+(:func:`aligned16`); the wrappers raise otherwise.
 """
 
 from __future__ import annotations
@@ -17,6 +24,15 @@ import torch
 from .. import _build
 
 HEAD_DIMS = (32, 64, 128)
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether every row of ``t`` that the kernels address starts 16-byte
+    aligned: its data pointer, and each (b, h, s) stride over more than one
+    index, in bytes."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or (st * size) % 16 == 0 for n, st in zip(t.shape[:3], t.stride()[:3]))
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,6 +114,7 @@ def flash_attention_bwd(
                 or t.stride(-1) != 1:
             raise ValueError(f"flash_attention_bwd: {name} must be like q with a contiguous "
                              f"last dim, got {tuple(t.shape)} {t.dtype} strides {t.stride()}")
+        _check_aligned(t, name, "flash_attention_bwd")
     if lse.shape != (b, hq, sq) or lse.dtype != torch.float32 or not lse.is_contiguous() \
             or lse.device != q.device:
         raise ValueError(f"flash_attention_bwd: lse must be contiguous f32 (b, hq, sq), got "
@@ -143,7 +160,15 @@ def _check(q, k, v, valid_k, what):
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{what} kernel needs a contiguous last dim")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_aligned(t, name, what)
     valid_k = sk if valid_k is None else valid_k
     if not 0 <= valid_k <= sk:
         raise ValueError(f"valid_k={valid_k} outside [0, {sk}]")
     return b, hq, sq, dh, hkv, sk, valid_k
+
+
+def _check_aligned(t, name, what):
+    if t.dtype == torch.bfloat16 and not aligned16(t):
+        raise ValueError(f"{what}: the bf16 kernel copies 16-byte rows, but {name} has data "
+                         f"pointer {t.data_ptr()} and strides {t.stride()} (elements)")

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .flash_attention import aligned16
 from .flash_attention import flash_attention as _kernel
 from .flash_attention import flash_attention_bwd as _kernel_bwd
 
@@ -29,8 +30,8 @@ class _AttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        if dout.stride(-1) != 1 or not aligned16(dout):
+            dout = dout.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = _kernel_bwd(q, k, v, out, lse, dout, causal=ctx.causal, window=ctx.window)
         return dq, dk, dv, None, None, None
 

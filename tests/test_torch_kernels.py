@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.core.gc import GradientCode
+from repro_torch.kernels.flash_attention.flash_attention import aligned16
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_bwd as fa_bwd
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -369,6 +370,19 @@ def test_gate_window_wrappers_refuse_what_they_do_not_take():
         gw_ops.buffer_stats(win.int(), 1)
     assert (gw_kernel.window_stats.launches, gw_kernel.buffer_stats.launches) == before
 
+def test_aligned16_reads_the_pointer_and_the_strides():
+    """The bf16 kernels' 16-byte row rule: the data pointer and every (b, h, s)
+    stride over more than one index, in bytes; a size-1 dim's stride is free."""
+    x = torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16)
+    assert aligned16(x) and aligned16(x.transpose(1, 2))
+    assert not aligned16(torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape))
+    assert not aligned16(torch.zeros(2, 64, 257, dtype=torch.bfloat16)[..., :256]
+                         .view(2, 64, 4, 64).transpose(1, 2))
+    assert aligned16(torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(1, 1, 1, 64))
+    assert not aligned16(torch.zeros(1, 2, 3, 66, dtype=torch.bfloat16)[..., :64])
+    assert aligned16(torch.zeros(1, 2, 3, 68, dtype=torch.float32)[..., :64])
+
+
 def test_ops_refuse_devices_without_an_implementation():
     x = torch.empty(4, 64, device="meta")
     with pytest.raises(ValueError, match="no implementation"):
@@ -397,12 +411,26 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype, gamma_dtype):
     torch.testing.assert_close(got.float(), rn_ref.rmsnorm(tx, tg).float(), rtol=tol, atol=tol)
 
 
+# bf16, the tensor-core kernels: head dims 32/64/128, ragged and single-row
+# queries, sq != sk, windows, GQA groups 1, 2, 7 and 8, non-causal
+ATTN_BF16_CASES = [
+    *[(2, 4, 2, 64, 64, dh, True, 0, "bfloat16") for dh in (32, 64, 128)],
+    *[(2, 14, 2, sq, sq, 64, True, 0, "bfloat16") for sq in (1, 33, 64, 500)],
+    (1, 8, 1, 100, 300, 64, False, 0, "bfloat16"),
+    (1, 8, 1, 300, 100, 32, True, 0, "bfloat16"),
+    (2, 8, 2, 200, 77, 128, False, 0, "bfloat16"),
+    *[(1, 4, 2, 256, 256, 64, True, w, "bfloat16") for w in (32, 96, 200)],
+    (1, 4, 2, 256, 256, 128, False, 96, "bfloat16"),
+    *[(2, 2 * group, 2, 130, 130, 64, True, 0, "bfloat16") for group in (1, 2, 7, 8)],
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,hq,hkv,sq,sk,dh,causal,window,dtype",
-    ATTN_CASES + [(8, 14, 2, 500, 500, 64, True, 0, "bfloat16"),
-                  (2, 14, 2, 33, 33, 64, True, 0, "float32"),
-                  (2, 8, 2, 1, 70, 32, False, 0, "float32")],
+    ATTN_CASES + ATTN_BF16_CASES + [(8, 14, 2, 500, 500, 64, True, 0, "bfloat16"),
+                                    (2, 14, 2, 33, 33, 64, True, 0, "float32"),
+                                    (2, 8, 2, 1, 70, 32, False, 0, "float32")],
 )
 @pytest.mark.parametrize("strided", [False, True])
 def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, dh, causal,
@@ -420,14 +448,33 @@ def test_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, dh, cau
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# b, hq, hkv, sq, sk, dh, window, valid_k, dtype: keys past valid_k masked;
+# with window 32 and valid_k 100, queries from 131 on see no key at all
+VALID_K_CASES = [
+    (1, 4, 2, 256, 256, 64, 0, 200, "float32"),
+    (1, 4, 2, 256, 256, 64, 0, 200, "bfloat16"),
+    (2, 14, 2, 100, 300, 64, 0, 250, "bfloat16"),
+    (2, 7, 1, 300, 180, 128, 0, 150, "bfloat16"),
+    (1, 4, 2, 300, 300, 64, 32, 100, "bfloat16"),
+    (1, 4, 2, 300, 300, 32, 32, 100, "float32"),
+]
+
+
 @pytest.mark.cuda
-def test_attention_kernel_valid_k(cuda_device):
-    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in
-               _randn(5, (1, 4, 256, 64), (1, 2, 256, 64), (1, 2, 256, 64)))
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,window,valid_k,dtype", VALID_K_CASES)
+def test_attention_kernel_valid_k(cuda_device, b, hq, hkv, sq, sk, dh, window, valid_k, dtype):
+    q, k, v = _randn(5, (b, sq, hq, dh), (b, sk, hkv, dh), (b, sk, hkv, dh))
+    q, k, v = (torch.from_numpy(a).to(cuda_device, DTYPES[dtype]).transpose(1, 2)
+               for a in (q, k, v))
+    tol = ATTN_TOL[dtype]
     for causal in (False, True):
-        got = fa_kernel(q, k, v, causal=causal, valid_k=200)
-        want = fa_ref.attention(q, k, v, causal=causal, valid_k=200)
-        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+        kw = dict(causal=causal, window=window, valid_k=valid_k)
+        got, lse = fa_kernel(q, k, v, return_lse=True, **kw)
+        want = fa_ref.attention(q, k, v, **kw)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+        if window:  # the fully masked rows: output 0, lse +inf
+            assert not got[:, :, valid_k + window - 1:].any()
+            assert torch.isposinf(lse[:, :, valid_k + window - 1:]).all()
 
 
 @pytest.mark.cuda
@@ -472,7 +519,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype, gamma_dtype
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,hq,hkv,sq,sk,dh,causal,window,dtype",
-    ATTN_CASES + [(128, 14, 2, 64, 64, 64, True, 0, "bfloat16"),
+    ATTN_CASES + ATTN_BF16_CASES + [(128, 14, 2, 64, 64, 64, True, 0, "bfloat16"),
                   (2, 14, 2, 33, 33, 64, True, 0, "float32"),
                   (2, 8, 2, 1, 70, 32, False, 0, "float32")],
 )
@@ -500,20 +547,109 @@ def test_attention_bwd_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, dh,
 
 
 @pytest.mark.cuda
-def test_attention_bwd_kernel_valid_k(cuda_device):
-    """Keys past valid_k get zero gradient and take no part in the others."""
-    q, k, v, do = (torch.from_numpy(a).to(cuda_device) for a in
-                   _randn(15, (1, 4, 256, 64), (1, 2, 256, 64), (1, 2, 256, 64),
-                          (1, 4, 256, 64)))
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,window,valid_k,dtype", VALID_K_CASES)
+def test_attention_bwd_kernel_valid_k(cuda_device, b, hq, hkv, sq, sk, dh, window, valid_k,
+                                      dtype):
+    """Keys past valid_k get zero gradient and take no part in the others;
+    fully masked queries get zero gradient."""
+    q, k, v, do = _randn(15, (b, sq, hq, dh), (b, sk, hkv, dh), (b, sk, hkv, dh),
+                         (b, sq, hq, dh))
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device, DTYPES[dtype]).transpose(1, 2)
+                   for a in (q, k, v, do))
+    tol = ATTN_TOL[dtype]
     for causal in (False, True):
-        out, lse = fa_kernel(q, k, v, causal=causal, valid_k=200, return_lse=True)
-        got = fa_bwd(q, k, v, out, lse, do, causal=causal, valid_k=200)
+        kw = dict(causal=causal, window=window, valid_k=valid_k)
+        out, lse = fa_kernel(q, k, v, return_lse=True, **kw)
+        got = fa_bwd(q, k, v, out, lse, do, **kw)
         qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
-        want = torch.autograd.grad(
-            fa_ref.attention(qq, kk, vv, causal=causal, valid_k=200), (qq, kk, vv), do)
+        want = torch.autograd.grad(fa_ref.attention(qq, kk, vv, **kw), (qq, kk, vv), do)
         for a, bb in zip(got, want):
-            torch.testing.assert_close(a, bb, rtol=2e-4, atol=2e-4)
-        assert not got[1][:, :, 200:].any() and not got[2][:, :, 200:].any()
+            assert a.dtype == bb.dtype and a.shape == bb.shape
+            torch.testing.assert_close(a.float(), bb.float(), rtol=tol, atol=tol)
+        assert not got[1][:, :, valid_k:].any() and not got[2][:, :, valid_k:].any()
+        if window:
+            assert not got[0][:, :, valid_k + window - 1:].any()
+
+
+def _device_kernel_names(fn):
+    """Names of the device kernels that ``fn()`` launched, from the profiler
+    (each call repeated and padded by spin kernels: the profiler can miss a
+    session's first and last activities)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(16):
+            torch.cuda._sleep(1000)
+        for _ in range(4):
+            fn()
+        for _ in range(16):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_dtype_picks_its_kernels(cuda_device, dtype):
+    """f32 runs the f32 CUDA-core kernels (and matches at the f32 tolerance);
+    bf16 runs the tensor-core kernels and never the f32 ones."""
+    q, k, v, do = _randn(16, (2, 14, 130, 64), (2, 2, 130, 64), (2, 2, 130, 64),
+                         (2, 14, 130, 64))
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device, DTYPES[dtype]) for a in (q, k, v, do))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = (fa_kernel.launches, fa_bwd.launches)
+    got = torch.autograd.grad(fa_ops.attention(q, k, v), (q, k, v), do)
+    assert (fa_kernel.launches, fa_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = torch.autograd.grad(fa_ref.attention(q, k, v), (q, k, v), do)
+    tol = ATTN_TOL[dtype]
+    for a, bb in zip(got, want):
+        torch.testing.assert_close(a.float(), bb.float(), rtol=tol, atol=tol)
+    names = _device_kernel_names(
+        lambda: torch.autograd.grad(fa_ops.attention(q, k, v), (q, k, v), do))
+    bf16_names = ("attn_fwd_bf16_kernel", "attn_bwd_dq_bf16_kernel", "attn_bwd_dkdv_bf16_kernel")
+    f32_names = ("attn_fwd_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+    ran, other = (bf16_names, f32_names) if dtype == "bfloat16" else (f32_names, bf16_names)
+    for name in ran:
+        assert any(name in n for n in names), (name, names)
+    for name in other:
+        assert not any(name in n for n in names), (name, names)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_refuse_misaligned_bf16_views(cuda_device):
+    """cp.async moves 16 bytes: a bf16 view one element off, or whose rows are
+    257 elements apart, raises before any launch; f32 takes both; the op's
+    backward copies a misaligned gradient."""
+    x, *qkv = (torch.from_numpy(a).to(cuda_device).transpose(1, 2)  # (b, h, s, dh) views
+               for a in _randn(17, *[(2, 64, 4, 64)] * 4))
+    q_ok, k_ok, v_ok = (t.bfloat16() for t in qkv)
+    n = x.numel()
+    for dtype in (torch.float32, torch.bfloat16):
+        shifted = torch.empty(n + 1, device=cuda_device, dtype=dtype)[1:].view(2, 4, 64, 64)
+        wide = torch.empty(2, 64, 4 * 64 + 1, device=cuda_device, dtype=dtype)[..., :256]
+        wide = wide.view(2, 64, 4, 64).transpose(1, 2)
+        for bad in (shifted.copy_(x), wide.copy_(x)):
+            if dtype == torch.float32:  # the f32 kernel takes any strides
+                torch.testing.assert_close(fa_kernel(bad, bad, bad),
+                                           fa_ref.attention(bad, bad, bad),
+                                           rtol=ATTN_TOL["float32"], atol=ATTN_TOL["float32"])
+                continue
+            assert not aligned16(bad)
+            before = (fa_kernel.launches, fa_bwd.launches)
+            for q, k, v in ((bad, k_ok, v_ok), (q_ok, bad, v_ok), (q_ok, k_ok, bad)):
+                with pytest.raises(ValueError, match="16-byte"):
+                    fa_kernel(q, k, v)
+            out, lse = fa_kernel(q_ok, k_ok, v_ok, return_lse=True)
+            with pytest.raises(ValueError, match="16-byte"):
+                fa_bwd(q_ok, k_ok, v_ok, out, lse, bad)
+            assert (fa_kernel.launches, fa_bwd.launches) == (before[0] + 1, before[1])
+            qq = q_ok.clone().requires_grad_(True)
+            got = torch.autograd.grad(fa_ops.attention(qq, k_ok, v_ok), qq, bad)[0]
+            want = torch.autograd.grad(fa_ref.attention(qq, k_ok, v_ok), qq, bad)[0]
+            torch.testing.assert_close(got.float(), want.float(), rtol=ATTN_TOL["bfloat16"],
+                                       atol=ATTN_TOL["bfloat16"])
 
 
 @pytest.mark.cuda
