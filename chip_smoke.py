@@ -7,8 +7,9 @@ Phases, one or more printed lines each; any failure exits non-zero:
   1. device        -- card name, count, and nvidia-smi's name and power limit;
   2. build         -- nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
                       each kernel's ptxas registers, shared memory and spills;
-                      fails unless every bf16 attention kernel's SASS holds
-                      HMMA (tensor-core) instructions and none spills at dh 64;
+                      fails unless every bf16 attention and ssd_scan kernel's
+                      SASS holds HMMA (tensor-core) instructions and none
+                      spills at head dim 64;
   3. rmsnorm       -- the kernel against its plain PyTorch version on the card;
   4. attention     -- the kernel against its plain PyTorch version on the card,
                       f32 (CUDA cores) and bf16 (tensor cores), the bf16 edges
@@ -16,12 +17,15 @@ Phases, one or more printed lines each; any failure exits non-zero:
   5. gc_coding     -- the coded-combine kernel against its plain version;
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
      attention-bwd    at the training shapes, in f32 and bf16, and attention's
-                      bf16 edges;
-  7. ssd_scan      -- the SSD intra-chunk kernel against its plain version:
-                      tests/test_ssd_kernel.py's shapes, a ragged final chunk,
-                      odd Q and head_dim, a strided view, mamba2-1.3b's full
-                      width in f32 and bf16, and a steep decay whose unmasked
-                      exp would overflow;
+                      bf16 edges; bf16 with q = k = v (a near one-hot softmax)
+                      against autograd of the f32 plain version;
+  7. ssd_scan      -- both SSD kernel entries (the intra-chunk block, and the
+                      fused chunk scan with the inter-chunk term, D skip and
+                      cast in its epilogue) against their plain versions, f32
+                      and bf16: tests/test_ssd_kernel.py's shapes, a ragged
+                      final chunk, odd Q and head_dim, strided views,
+                      mamba2-1.3b's full width, and a steep decay whose
+                      unmasked exp would overflow; misaligned views refused;
   8. slice         -- full-width qwen2-0.5b serving through ``serve()`` (prefill
                       of 8 x 500 prompt tokens, 31 greedy decode steps), with
                       the kernels' launch counts read around that run; then a
@@ -30,11 +34,15 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       A profiled prefill and decode step give the device's
                       busy time by kernel category and its idle share;
   9. slice-ssm     -- the same for full-width mamba2-1.3b (48 Mamba2 blocks,
-                      attention-free): exactly 48 ``ssd_scan`` and 3,104
-                      ``rmsnorm`` launches around the served request, prefill
-                      ms, decode tok/s, peak memory, a profiled prefill and
-                      decode step, and f32 teacher-forced logits through the
-                      kernels and through ``plain=True``;
+                      attention-free): exactly 48 ``ssd_scan`` launches, all
+                      of the fused chunk-scan entry, and 3,104 ``rmsnorm``
+                      launches around the served request, prefill ms, decode
+                      tok/s, peak memory, a profiled prefill and decode step,
+                      and f32 teacher-forced logits through the kernels and
+                      through ``plain=True``; then [profile ssd_chunked]: one
+                      block's prefill, device ms and launches per pass of
+                      ``ssd_chunked`` (its profiler ranges), the
+                      non-vectorised elementwise launches named;
  10. train-demo    -- ``train_demo()`` (the multi-model coded MLP training of
                       ``launch/train.py --demo``) for gc, sr-sgc, m-sgc and
                       uncoded: every decoded gradient against the full-batch
@@ -65,7 +73,9 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       time the card could take (published H100 peaks), achieved
                       rates and share of that bound; attention in bf16 and f32
                       at the prefill's and the coded step's shapes, with SDPA
-                      (or its autograd) and each kernel's ptxas line.
+                      (or its autograd) and each kernel's ptxas line; both
+                      ssd_scan entries, the fused one beside the torch passes
+                      it replaces.
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -254,6 +264,7 @@ def main() -> None:
         from repro_torch.kernels.rmsnorm import ref as rn_ref
         from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm as rn_kernel
         from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd as rn_bwd
+        from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan as scan_kernel
         from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
     except ImportError as e:
         fail(f"cannot import the port from {ROOT / 'src'}: {e}")
@@ -283,8 +294,15 @@ def main() -> None:
     bf16_attn = [label for label in attn if "_bf16_kernel<" in label]
     if len(bf16_attn) != 9 or not all(attn[label] for label in bf16_attn):
         fail(f"the bf16 attention kernels' SASS lacks tensor-core instructions: {attn}")
+    # ... and so do both products of the bf16 SSD chunk scan
+    ssd = {label: n for label, n in sorted(hmma.items()) if label.startswith("ssd_")}
+    say("build", f"HMMA instructions in the SASS: {ssd}")
+    bf16_ssd = [label for label in ssd if label.startswith("ssd_bf16_kernel<")]
+    if len(bf16_ssd) != 12 or not all(ssd[label] for label in bf16_ssd):
+        fail(f"the bf16 ssd_scan kernels' SASS lacks tensor-core instructions: {ssd}")
     for label in ("attn_fwd_bf16_kernel<64>", "attn_bwd_dq_bf16_kernel<64>",
-                  "attn_bwd_dkdv_bf16_kernel<64>"):
+                  "attn_bwd_dkdv_bf16_kernel<64>",
+                  *[label for label in bf16_ssd if ", 64, " in label]):
         if "0 bytes spill stores, 0 bytes spill loads" not in ptxas.get(label, ""):
             fail(f"{label} spills at head dim 64: {ptxas.get(label)}")
 
@@ -406,10 +424,25 @@ def main() -> None:
                   for name, a, bb in zip(("dq", "dk", "dv"), got, want))
         if (b, dtype) == (TRAIN_SEQS, torch.bfloat16):
             errs["flash_attention_bwd"] = err
+    # q = k = v in bf16: a near one-hot softmax, where dP - D cancels on the
+    # diagonal; against autograd of the f32 plain version on the same values
+    for b, h, g_kv in ((2, 4, 4), (TRAIN_SEQS, hq, hkv)):
+        for causal in (True, False):
+            kv = heads_view(b, g_kv, TRAIN["seq"], dh, torch.bfloat16)
+            q = kv.repeat_interleave(h // g_kv, dim=1)
+            do = heads_view(b, h, TRAIN["seq"], dh, torch.bfloat16)
+            out, lse = fa_kernel(q, kv, kv, return_lse=True, causal=causal)
+            got = fa_bwd(q, kv, kv, out, lse, do, causal=causal)
+            leaves = [t.float().requires_grad_(True) for t in (q, kv, kv)]
+            want = torch.autograd.grad(fa_ref.attention(*leaves, causal=causal), leaves,
+                                       do.float())
+            for name, a, bb in zip(("dq", "dk", "dv"), got, want):
+                compare("attention-bwd", f"{name} q = k = v {tuple(q.shape)} kv "
+                        f"{tuple(kv.shape)} bf16 causal {causal}", a, bb, ATTN_TOL["bfloat16"])
     torch.cuda.synchronize()
 
-    # 7. ssd_scan kernel vs plain
-    errs["ssd_scan"] = _ssd_check(dev)
+    # 7. ssd_scan kernel vs plain, both entries
+    errs.update(_ssd_check(dev))
 
     # 8. slice: full-width qwen2-0.5b serving through the port's entry point
     L = cfg.num_layers
@@ -420,9 +453,17 @@ def main() -> None:
     # 9. slice-ssm: the same for full-width mamba2-1.3b
     scfg = get_config(SSM_ARCH)
     L = scfg.num_layers
-    launches["ssd_scan"] = _serve_slice(
-        "slice-ssm", dev, scfg, gen, {"ssd_scan": ssd_kernel, "rmsnorm": rn_kernel},
-        {"ssd_scan": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})["ssd_scan"]
+    # one fused chunk-scan launch a block, none of the intra entry; the
+    # ssd_scan row counts both entries of ssd_scan.cu (one kernel template)
+    ssm_launches = _serve_slice(
+        "slice-ssm", dev, scfg, gen,
+        {"ssd_chunk_scan": scan_kernel, "ssd_intra_chunk": ssd_kernel, "rmsnorm": rn_kernel},
+        {"ssd_chunk_scan": L, "ssd_intra_chunk": 0, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
+    launches["ssd_chunk_scan"] = ssm_launches["ssd_chunk_scan"]
+    launches["ssd_scan"] = ssm_launches["ssd_chunk_scan"] + ssm_launches["ssd_intra_chunk"]
+
+    # where one mamba2-1.3b block's prefill time goes, pass by pass
+    _profile_ssd_chunked(dev)
 
     # 10. train-demo: the multi-model coded MLP training of launch/train.py --demo
     launches["coded_combine"] = _train_demo(dev)
@@ -459,7 +500,7 @@ def main() -> None:
     rows += _attention_timings(cfg, heads_view, ptxas)
     rows += _training_timings(dev, cfg, randn)
     rows += _gate_window_timings(dev)
-    rows.append(_ssd_timing(dev))
+    rows += _ssd_timing(dev)
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
@@ -1044,64 +1085,89 @@ def _ssd_inputs(dev, gen, b, nc, Q, nh, hd, st, dtype, A_scale=1.0, tail=0):
                  (x.to(dtype), dt, cum, Bm.to(dtype), Cm.to(dtype)))
 
 
-def _ssd_check(dev) -> float:
-    """The SSD intra-chunk kernel against its plain version on the card;
-    returns the error at mamba2-1.3b's full width in bf16."""
+def _ssd_check(dev) -> dict:
+    """Both SSD kernel entries against their plain versions on the card: the
+    intra-chunk block (y_intra, f32) and the fused chunk scan (y in f32, and
+    in bf16 for bf16 inputs, with an h_prev, D and a ragged sequence end);
+    returns each entry's error at mamba2-1.3b's full width in bf16."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan as scan_kernel
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
 
     gen = torch.Generator(device=dev).manual_seed(2)
     f32, bf16 = torch.float32, torch.bfloat16
-    full = (BATCH, -(-PROMPT_LEN // 64), 64, 64, 64, 128)   # as [slice-ssm] gives it
+    full = (BATCH, -(-PROMPT_LEN // 64), 64, 64, 64, 128)   # as [slice-ssm] gives it,
+    full_tail = full[1] * 64 - PROMPT_LEN                    # with s = PROMPT_LEN
     cases = [  # (b, nc, Q, nh, hd, st), dtype, A_scale, tail rows, note
-        *[(s, f32, 1.0, 0, "") for s in [(2, 2, 16, 3, 8, 5), (1, 4, 64, 4, 32, 16),
-                                         (2, 1, 128, 2, 64, 32), (1, 2, 64, 8, 8, 128)]],
+        *[(s, dt, 1.0, 0, "") for s in [(2, 2, 16, 3, 8, 5), (1, 4, 64, 4, 32, 16),
+                                        (2, 1, 128, 2, 64, 32), (1, 2, 64, 8, 8, 128)]
+          for dt in (f32, bf16)],
         ((1, 2, 32, 2, 16, 8), bf16, 1.0, 0, ""),
-        ((2, 3, 64, 4, 32, 16), f32, 1.0, 64 * 3 - 150, " ragged final chunk"),
-        ((2, 3, 50, 3, 20, 5), f32, 1.0, 0, " odd Q and head_dim"),
-        (full, f32, 1.0, 0, " full width"),
-        (full, bf16, 1.0, 0, " full width"),
-        ((1, 2, 64, 4, 16, 8), f32, 200.0, 0, " steep decay"),
+        *[((2, 3, 64, 4, 32, 16), dt, 1.0, 64 * 3 - 150, " ragged final chunk") for dt in (f32, bf16)],
+        *[((2, 3, 50, 3, 20, 5), dt, 1.0, 0, " odd Q and head_dim") for dt in (f32, bf16)],
+        (full, f32, 1.0, full_tail, " full width"),
+        (full, bf16, 1.0, full_tail, " full width"),
+        *[((1, 2, 64, 4, 16, 8), dt, 200.0, 0, " steep decay") for dt in (f32, bf16)],
     ]
-    worst = 0.0
-    for shape, dtype, A_scale, tail, note in cases:
-        args = _ssd_inputs(dev, gen, *shape, dtype, A_scale, tail)
-        got = ssd_kernel(*args)
-        torch.cuda.synchronize()
-        want = ssd_ref.ssd_intra_chunk(*args)
-        if not torch.isfinite(got).all():
-            fail(f"ssd_scan {shape}{note}: non-finite output")
-        tol = SSD_TOL[_dtype_name(dtype)]
-        err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, rtol=tol, atol=tol)
-        say("ssd_scan", f"{shape} {_dtype_name(dtype)}{note}: max_abs_err {err:.3e} "
-                        f"(tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
+
+    def check(what, got, want, tol):
+        if not torch.isfinite(got.float()).all():
+            fail(f"ssd_scan {what}: non-finite output")
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+        say("ssd_scan", f"{what}: max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"ssd_scan {shape}{note}: kernel disagrees with the plain version")
+            fail(f"ssd_scan {what}: kernel disagrees with the plain version")
+        return err
+
+    worst = {}
+    for shape, dtype, A_scale, tail, note in cases:
+        b, nc, Q, nh, hd, st = shape
+        args = _ssd_inputs(dev, gen, *shape, dtype, A_scale, tail)
+        tol = SSD_TOL[_dtype_name(dtype)]
+        err = check(f"intra {shape} {_dtype_name(dtype)}{note}", ssd_kernel(*args),
+                    ssd_ref.ssd_intra_chunk(*args), tol)
         if (shape, dtype) == (full, bf16):
-            worst = err
+            worst["ssd_scan"] = err
+        err = 0.0
+        h_prev = torch.randn((b * nc, nh, hd, st), generator=gen, device=dev) * 0.5
+        D = torch.randn(nh, generator=gen, device=dev)
+        s = nc * Q - tail
+        chunked = [t.unflatten(0, (b, nc)) for t in (*args, h_prev)]
+        for out in sorted({f32, dtype}, key=str):
+            got = scan_kernel(*args, h_prev, D, nc, s, out)
+            torch.cuda.synchronize()
+            want = ssd_ref.ssd_chunk_scan(*chunked[:5], chunked[5], D, s, out)
+            err = max(err, check(f"fused {shape} {_dtype_name(dtype)} -> {_dtype_name(out)}, "
+                                 f"s {s}{note}", got, want, tol))
+        if (shape, dtype) == (full, bf16):
+            worst["ssd_chunk_scan"] = err
     # the model's layout: x, B and C are strided slices of one projection
     nh, hd, st = 4, 16, 8
-    xbc = torch.randn((6, 64, nh * hd + 2 * st), generator=gen, device=dev)
-    x = xbc[..., :nh * hd].reshape(6, 64, nh, hd)
-    Bm, Cm = xbc[..., nh * hd:nh * hd + st], xbc[..., nh * hd + st:]
-    dt = torch.rand((6, 64, nh), generator=gen, device=dev) * 0.5
-    cum = torch.cumsum(-dt, dim=1)
-    got, want = ssd_kernel(x, dt, cum, Bm, Cm), ssd_ref.ssd_intra_chunk(x, dt, cum, Bm, Cm)
-    err = (got - want).abs().max().item()
-    say("ssd_scan", f"strided slices of a (6, 64, {nh * hd + 2 * st}) projection: max_abs_err "
-                    f"{err:.3e} (tol {SSD_TOL['float32']:g})")
-    if not torch.allclose(got, want, rtol=SSD_TOL["float32"], atol=SSD_TOL["float32"]):
-        fail("ssd_scan: the kernel misreads strided inputs")
-    z = torch.zeros(1, 129, 1, 8, device=dev)
-    try:
-        ssd_kernel(z, z[..., 0], z[..., 0], z[:, :, 0], z[:, :, 0])
-    except ValueError:
-        say("ssd_scan", "a 129-row chunk refused")
-    else:
-        fail("ssd_scan: a 129-row chunk did not raise")
+    for dtype in (f32, bf16):
+        xbc = torch.randn((6, 64, nh * hd + 2 * st), generator=gen, device=dev).to(dtype)
+        x = xbc[..., :nh * hd].reshape(6, 64, nh, hd)
+        Bm, Cm = xbc[..., nh * hd:nh * hd + st], xbc[..., nh * hd + st:]
+        dt = torch.rand((6, 64, nh), generator=gen, device=dev) * 0.5
+        cum = torch.cumsum(-dt, dim=1)
+        check(f"intra, strided slices of a (6, 64, {nh * hd + 2 * st}) {_dtype_name(dtype)} "
+              f"projection", ssd_kernel(x, dt, cum, Bm, Cm),
+              ssd_ref.ssd_intra_chunk(x, dt, cum, Bm, Cm), SSD_TOL[_dtype_name(dtype)])
+    refused = {
+        "a 129-row chunk": lambda z=torch.zeros(1, 129, 1, 8, device=dev):
+            ssd_kernel(z, z[..., 0], z[..., 0], z[:, :, 0], z[:, :, 0]),
+        "a bf16 view one element off 16 bytes": lambda v=xbc[..., 1:1 + nh * hd]:
+            ssd_kernel(v.reshape(6, 64, nh, hd), dt, cum, Bm, Cm),
+    }
+    for what, call in refused.items():
+        try:
+            call()
+        except ValueError:
+            say("ssd_scan", f"{what} refused")
+        else:
+            fail(f"ssd_scan: {what} did not raise")
     torch.cuda.synchronize()
     return worst
 
@@ -1182,28 +1248,139 @@ def _serve_slice(phase, dev, cfg, gen, counters, want) -> dict:
     return launches
 
 
-def _ssd_timing(dev) -> dict:
-    """The ``ssd_scan`` timing row at [slice-ssm]'s prefill shape, bf16."""
+def _profile_ssd_chunked(dev) -> dict:
+    """One full-width mamba2-1.3b block's prefill (``ssm_apply`` with its
+    cache, bf16, [slice-ssm]'s 8 x 500 tokens), profiled.  ``ssd_chunked``
+    and ``ssm_apply`` name each pass with a profiler range (``ssd.*``,
+    ``models/ssm.py:_span``); every device activity is attributed to the
+    innermost range around the host call that launched it, and the rest of
+    the block to ``ssm_apply``.  Prints device ms and launches per range and
+    names the non-vectorised ``elementwise_kernel`` launches; returns
+    {range: (ms, launches)}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config(SSM_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = ssm.ssm_init(gen, cfg, torch.bfloat16)
+    x = torch.randn((BATCH, PROMPT_LEN, cfg.d_model), generator=gen, device=dev)
+    x = x.to(torch.bfloat16)
+    with torch.inference_mode():
+        ssm.ssm_apply(p, x, cfg, return_cache=True)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPINS):
+                torch.cuda._sleep(1000)
+            with record_function("ssm_apply"):
+                ssm.ssm_apply(p, x, cfg, return_cache=True)
+            for _ in range(SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+    events = prof.events()
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = [e for e in cpu if e.name == "ssm_apply" or e.name.startswith("ssd.")]
+    # a device activity and the runtime call that issued it (cudaLaunchKernel,
+    # cudaMemcpyAsync, ...) share the CUPTI correlation id
+    issued = {e.id: e.time_range.start for e in cpu if e.name.startswith("cu")}
+    per: dict[str, list] = {r.name: [0.0, 0, {}] for r in ranges}
+    names = {r.name for r in ranges}  # their device-side spans are not activities
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and "spin_kernel" not in e.name and e.name not in names]
+    lost = []
+    for k in device:
+        t = issued.get(k.id)
+        inside = [r for r in ranges if t is not None and r.time_range.start <= t <= r.time_range.end]
+        if not inside:
+            lost.append(k.name)
+            continue
+        acc = per[max(inside, key=lambda r: r.time_range.start).name]
+        ms = k.time_range.elapsed_us() / 1e3
+        acc[0] += ms
+        acc[1] += 1
+        if "elementwise_kernel" in k.name and "vectorized" not in k.name:
+            n, total = acc[2].get(k.name[:110], (0, 0.0))
+            acc[2][k.name[:110]] = (n + 1, total + ms)
+    total = sum(v[0] for v in per.values())
+    say("profile ssd_chunked", f"one {cfg.name} block, prefill {BATCH}x{PROMPT_LEN}, bf16: "
+                               f"device {total:.3f} ms in {len(device) - len(lost)} of "
+                               f"{len(device)} device activities, attributed to a range")
+    if lost:
+        say("profile ssd_chunked", f"  not attributed: {sorted(set(n[:60] for n in lost))}")
+    for name, (ms, n, elem) in sorted(per.items(), key=lambda kv: -kv[1][0]):
+        say("profile ssd_chunked", f"  {name}: {ms:.3f} ms in {n} launches")
+        for kname, (m, dur) in sorted(elem.items(), key=lambda kv: -kv[1][1]):
+            say("profile ssd_chunked", f"    non-vectorised: {m} x {dur:.3f} ms {kname}")
+    del p, x
+    torch.cuda.empty_cache()
+    return {name: (v[0], v[1]) for name, v in per.items()}
+
+
+def _ssd_timing(dev) -> list:
+    """The two ``ssd_scan`` timing rows at [slice-ssm]'s prefill shape, bf16:
+    the intra-chunk entry (y_intra in f32, the TPU kernel's counterpart) and
+    the fused chunk scan (y in bf16).  Beside the fused row, the torch passes
+    it replaces (``ref.chunk_output``: the inter-chunk einsum, the sums, the
+    D skip and the cast) after the intra entry, as ``ssd_chunked`` ran them.
+    Both entries launch one kernel template of ``ssd_scan.cu``; the main
+    path launches only the fused one, so the intra row's ``launches`` are
+    the source's (``launches_of`` says so)."""
     import torch
 
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan as scan_kernel
     from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
 
     gen = torch.Generator(device=dev).manual_seed(4)
     b, nc, Q, nh, hd, st = BATCH, -(-PROMPT_LEN // 64), 64, 64, 64, 128
-    args = _ssd_inputs(dev, gen, b, nc, Q, nh, hd, st, torch.bfloat16)
+    bf16 = torch.bfloat16
+    args = _ssd_inputs(dev, gen, b, nc, Q, nh, hd, st, bf16, tail=nc * Q - PROMPT_LEN)
     bc = b * nc
-    n_bytes = sum(t.numel() * t.element_size() for t in args) + bc * Q * nh * hd * 4
-    # the causal half: C.B^T over (q, u <= q), then per head the decay (a
-    # subtract, an exp, a multiply), x*dt, and w @ (x*dt): f32 on CUDA cores
-    pairs = Q * (Q + 1) // 2
-    n_ops = bc * (2 * pairs * st + nh * (pairs * (2 * hd + 3) + Q * hd))
-    row = _timed("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
-                 "src/repro/kernels/ssd_scan/ssd_scan.py:30", (bc, Q, nh, hd, st),
-                 lambda: ssd_kernel(*args), lambda: ssd_ref.ssd_intra_chunk(*args), None,
-                 n_bytes, n_ops, "f32", iters=100)
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    # the function's work over the causal half, each product once: C.B^T, per
+    # head the decay (subtract, multiply, exp, two multiplies) and w @ x.  The
+    # bf16 kernel runs C.B^T and w' @ x on the tensor cores, over whole 16 x 16
+    # tiles, with w' split into bf16 hi + lo (two w' @ x): ``kernel_ops``.
+    causal = Q * (Q + 1) // 2
+    tiles = (Q // 16) * (Q // 16 + 1) // 2 * 256
+    n_ops = bc * (2 * causal * st + nh * causal * (5 + 2 * hd))
+    kernel_ops = [bc * (2 * tiles * st + nh * tiles * (5 + 2 + 2 * 2 * hd))]
+    rows = [_timed("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                   "src/repro/kernels/ssd_scan/ssd_scan.py:30", (bc, Q, nh, hd, st),
+                   lambda: ssd_kernel(*args), lambda: ssd_ref.ssd_intra_chunk(*args), None,
+                   in_bytes + bc * Q * nh * hd * 4, n_ops, "bf16_tensor", iters=100)]
+    rows[0]["launches_of"] = "ssd_scan.cu, both entries: on the main path all ssd_chunk_scan"
+    h_prev = torch.randn((bc, nh, hd, st), generator=gen, device=dev) * 0.5
+    D = torch.randn(nh, generator=gen, device=dev)
+    chunked = [t.unflatten(0, (b, nc)) for t in (*args, h_prev)]
+    x, _, cum, _, Cc, hp = chunked
+    n_bytes = in_bytes + h_prev.numel() * 4 + D.numel() * 4 + b * PROMPT_LEN * nh * hd * 2
+    # + C . h_prev^T, exp(cum) per row, the sums and the D skip; the kernel
+    # runs C . h_prev^T on the tensor cores twice (h_prev split into bf16 hi + lo)
+    n_ops += bc * nh * (2 * Q * st * hd + Q + 3 * Q * hd)
+    kernel_ops.append(kernel_ops[0] + bc * nh * (2 * 2 * Q * st * hd + Q + 3 * Q * hd))
+    rows.append(_timed(
+        "ssd_chunk_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan/ssd_scan.py:30 (+ src/repro/models/ssm.py:131-140)",
+        (b, PROMPT_LEN, nh, hd, st),
+        lambda: scan_kernel(*args, h_prev, D, nc, PROMPT_LEN, bf16),
+        lambda: ssd_ref.ssd_chunk_scan(*chunked[:5], hp, D, PROMPT_LEN, bf16), None,
+        n_bytes, n_ops, "bf16_tensor", iters=100))
+    y_intra = ssd_kernel(*args).unflatten(0, (b, nc))
+    passes = _device_ms(lambda: ssd_ref.chunk_output(y_intra, x, cum, Cc, hp, D, PROMPT_LEN,
+                                                     bf16), 50)
+    rows[1]["replaced_ms"] = rows[0]["ms"] + passes
+    for r, ops in zip(rows, kernel_ops):
+        say("timings", f"{r['name']}: the bf16 kernel runs {ops:.4g} operations (split bf16, "
+                       f"whole 16 x 16 tiles) for the function's {r['ops']:.4g}")
+    say("timings", f"ssd_chunk_scan replaces the intra entry ({rows[0]['ms']:.5f} ms) and the "
+                   f"torch passes after it ({passes:.5f} ms device): {rows[1]['replaced_ms']:.5f} "
+                   f"ms, against the fused entry's {rows[1]['ms']:.5f} ms")
     torch.cuda.synchronize()
-    return row
+    return rows
 
 
 def _logit_check(name, got, want, quiet=False, phase="slice") -> float:
@@ -1318,7 +1495,7 @@ def _category(name: str) -> str:
         return "rmsnorm kernel"
     if "window_stats_kernel" in name or "buffer_stats_kernel" in name:
         return "gate_window kernels"
-    if "ssd_intra_kernel" in name:
+    if "ssd_bf16_kernel" in name or "ssd_f32_kernel" in name:
         return "ssd_scan kernel"
     if any(w in name.lower() for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")):
         return "matmul (cuBLAS)"

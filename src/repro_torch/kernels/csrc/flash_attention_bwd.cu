@@ -2,7 +2,7 @@
 //
 // Given q, k, v, the forward's output o, its row log-sum-exp lse and dO:
 //   p = exp(scale * q.k - lse)            (0 where masked)
-//   D = rowsum(dO * o)
+//   D = rowsum(dO * o) = rowsum(p * dP)
 //   dV = p^T dO,  dP = dO v^T,  dS = p * (dP - D),
 //   dQ = scale * dS k,  dK = scale * dS^T q.
 //
@@ -24,14 +24,20 @@
 //   4.2x autograd of SDPA.
 //   - Tiles sit on the grid's slowest axis, the longest causal ones first, as
 //     in the forward.
-//   - dq: one block per (batch, q-head, 64-row q tile), 4 warps of 16 rows.  It
-//     first computes D = rowsum(dO * o) in f32 for its rows and stores it for
-//     the second launch.  Q and dO stay in registers as A fragments (in shared
-//     memory at dh 128, where the registers go to the accumulators); K and V
-//     tiles of 64 keys come through a two-stage cp.async ring.  S = Q K^T, then
-//     P = exp2(S * scale * log2(e) - lse * log2(e)), masked, and dP = dO V^T;
-//     dS = P * (dP - D) is rounded to bf16 in registers and is the A operand of
-//     dQ += dS K (K read by ldmatrix.trans).  dQ * scale is stored once.
+//   - dq: one block per (batch, q-head, 64-row q tile), 4 warps of 16 rows.  Q
+//     and dO stay in registers as A fragments (in shared memory at dh 128,
+//     where the registers go to the accumulators); K and V tiles of 64 keys
+//     come through a two-stage cp.async ring.  S = Q K^T, then P = exp2(S *
+//     scale * log2(e) - lse * log2(e)), masked, and dP = dO V^T; dS = P * (dP
+//     - D) is rounded to bf16 in registers and is the A operand of dQ += dS K
+//     (K read by ldmatrix.trans).  dQ * scale is stored once.
+//   - D = rowsum(dO * o) = rowsum(P * dP) is taken from the f32 P and dP, not
+//     from the stored bf16 o: where one key dominates a row's softmax (q = k =
+//     v), dP - D cancels on that key, and o's rounding alone put dQ beyond
+//     3e-2 of the f32 gradient.  With one key tile (the training shape, 64
+//     keys) the tile's registers give D and then dS; with more, a first pass
+//     over the key tiles forms D (S and dP computed twice).  The dq launch
+//     stores D for the dkdv launch; the forward writes nothing extra.
 //   - dkdv: one block per (batch, kv-head, 64-key tile), 4 warps of 16 keys.
 //     K and V stay resident (A fragments in registers; in shared memory at dh
 //     128).  The block walks every q-head of its GQA group and the band's q
@@ -333,7 +339,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int DH>
 constexpr int bf16_smem_bytes() {
-  // dq: Q, dO and two stages of (K, V), then D of the rows;
+  // dq: Q, dO and two stages of (K, V);
   // dkdv: K, V and two stages of (Q, dO), then two stages of (lse, D)
   return 6 * 64 * mma::Tile<DH>::kStride * (int)sizeof(bf16) + 4 * 64 * (int)sizeof(float);
 }
@@ -341,9 +347,9 @@ constexpr int bf16_smem_bytes() {
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout, const float* __restrict__ lse,
-                        float* __restrict__ delta, bf16* __restrict__ dq, const BwdArgs a) {
+                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, float* __restrict__ delta,
+                        bf16* __restrict__ dq, const BwdArgs a) {
   constexpr int S = mma::Tile<DH>::kStride;
   constexpr int KC = DH / 16;
   constexpr int NT = kKeys / 8;
@@ -352,7 +358,6 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + kRows * S;
   bf16* ring = dos + kRows * S;  // stage i: K at ring + i * 2 * kKeys * S, then V
-  float* dsm = reinterpret_cast<float*>(ring + 4 * kKeys * S);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -362,73 +367,49 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const mma::Band band{a.sq, a.valid_k, a.causal, a.window};
   int kv_begin, kv_end;
   const int n_tiles = band.key_tiles(q0, kRows, kKeys, &kv_begin, &kv_end);
+  // D = rowsum(P * dP) needs every key tile before the first dS: one tile
+  // serves both from the same registers, more take a first pass for D
+  const int steps = n_tiles <= 1 ? n_tiles : 2 * n_tiles;
 
-  const bf16* ob = o + bi * a.o.b + h * a.o.h;
   const bf16* db = dout + bi * a.dout.b + h * a.dout.h;
   const bf16* kb = k + bi * a.k.b + kh * a.k.h;
   const bf16* vb = v + bi * a.v.b + kh * a.v.h;
-  auto load_kv = [&](int i) {
-    bf16* ks = ring + (i & 1) * 2 * kKeys * S;
-    const int k0 = kv_begin + i * kKeys;
+  auto load_kv = [&](int j) {  // step j reads key tile j % n_tiles into stage j & 1
+    bf16* ks = ring + (j & 1) * 2 * kKeys * S;
+    const int k0 = kv_begin + (j % n_tiles) * kKeys;
     mma::load_tile<kKeys, DH, kThreads>(ks, kb, a.k.s, k0, kv_end, tid);
     mma::load_tile<kKeys, DH, kThreads>(ks + kKeys * S, vb, a.v.s, k0, kv_end, tid);
   };
   mma::load_tile<kRows, DH, kThreads>(qs, q + bi * a.q.b + h * a.q.h, a.q.s, q0, a.sq, tid);
   mma::load_tile<kRows, DH, kThreads>(dos, db, a.dout.s, q0, a.sq, tid);
   mma::cp_async_commit();
-  if (n_tiles > 0) load_kv(0);
+  if (steps > 0) load_kv(0);
   mma::cp_async_commit();
-
-  // D = rowsum(dO * o) in f32, two threads a row, while the tiles load
-  const long long rows = ((long long)bi * a.hq + h) * a.sq;
-  {
-    const int r = tid >> 1, half = tid & 1, row = q0 + r;
-    float d = 0.f;
-    if (row < a.sq) {
-      const uint4* op = reinterpret_cast<const uint4*>(ob + row * a.o.s + half * (DH / 2));
-      const uint4* dp = reinterpret_cast<const uint4*>(db + row * a.dout.s + half * (DH / 2));
-#pragma unroll
-      for (int c = 0; c < DH / 16; ++c) {
-        const uint4 ov = op[c], dv = dp[c];
-        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 of = __bfloat1622float2(o2[j]), df = __bfloat1622float2(d2[j]);
-          d = fmaf(of.x, df.x, fmaf(of.y, df.y, d));
-        }
-      }
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    if (half == 0) {
-      dsm[r] = d;
-      if (row < a.sq) delta[rows + row] = d;
-    }
-  }
   mma::cp_async_wait<1>();  // Q and dO have landed
   __syncthreads();
   mma::AFrags<DH, kResident> qf, dof;
   qf.init(qs + warp * 16 * S, lane);
   dof.init(dos + warp * 16 * S, lane);
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const long long rows = ((long long)bi * a.hq + h) * a.sq;
   const float sl2 = a.scale * kLog2e;
   // rows past sq: lse +inf, so P = 0
   const float lse0 = row0 < a.sq ? lse[rows + row0] * kLog2e : INFINITY;
   const float lse1 = row1 < a.sq ? lse[rows + row1] * kLog2e : INFINITY;
-  const float d0 = dsm[warp * 16 + g], d1 = dsm[warp * 16 + g + 8];
+  float d0 = 0.f, d1 = 0.f;  // this lane's part of D until the first pass ends, then D
   float acc[DH / 8][4];
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) load_kv(i + 1);
+  for (int j = 0; j < steps; ++j) {
+    if (j + 1 < steps) load_kv(j + 1);
     mma::cp_async_commit();
-    mma::cp_async_wait<1>();  // tile i has landed
+    mma::cp_async_wait<1>();  // step j's tile has landed
     __syncthreads();
-    const bf16* ks = ring + (i & 1) * 2 * kKeys * S;
-    const int k0 = kv_begin + i * kKeys;
+    const bf16* ks = ring + (j & 1) * 2 * kKeys * S;
+    const int k0 = kv_begin + (j % n_tiles) * kKeys;
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -443,10 +424,34 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         float p = exp2f(fmaf(s[n][e], sl2, -(e < 2 ? lse0 : lse1)));
         if (edge && !band.visible(e < 2 ? row0 : row1, k0 + n * 8 + 2 * t + (e & 1))) p = 0.f;
-        s[n][e] = p * (dp[n][e] - (e < 2 ? d0 : d1));  // dS
+        s[n][e] = p;
       }
-    mma::mma_pv<NT / 2, DH>(acc, s, ks, lane);  // dQ += dS K
+    if (j < n_tiles) {  // first pass: D += P * dP over this tile's keys
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        d0 = fmaf(s[n][0], dp[n][0], fmaf(s[n][1], dp[n][1], d0));
+        d1 = fmaf(s[n][2], dp[n][2], fmaf(s[n][3], dp[n][3], d1));
+      }
+      if (j == n_tiles - 1) {  // across the quad that shares the rows
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          d0 += __shfl_xor_sync(0xffffffffu, d0, off);
+          d1 += __shfl_xor_sync(0xffffffffu, d1, off);
+        }
+      }
+    }
+    if (steps == 1 || j >= n_tiles) {  // second pass: dQ += dS K, dS = P (dP - D)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] *= dp[n][e] - (e < 2 ? d0 : d1);
+      mma::mma_pv<NT / 2, DH>(acc, s, ks, lane);
+    }
     __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  if (t == 0) {  // D of every row, 0 where no key is seen, for the dK/dV launch
+    if (row0 < a.sq) delta[rows + row0] = d0;
+    if (row1 < a.sq) delta[rows + row1] = d1;
   }
   mma::store_rows<DH>(acc, a.scale, a.scale, qs + warp * 16 * S, dq + bi * a.dq.b + h * a.dq.h,
                       a.dq.s, q0 + warp * 16, a.sq, lane);
@@ -562,8 +567,7 @@ cudaError_t launch_bf16_dh(const void* const* ptrs, float* delta, int b, const B
   const bf16* q = static_cast<const bf16*>(ptrs[0]);
   const bf16* k = static_cast<const bf16*>(ptrs[1]);
   const bf16* v = static_cast<const bf16*>(ptrs[2]);
-  const bf16* o = static_cast<const bf16*>(ptrs[3]);
-  const bf16* dout = static_cast<const bf16*>(ptrs[4]);
+  const bf16* dout = static_cast<const bf16*>(ptrs[4]);  // ptrs[3], o, is not read: D comes from P
   const float* lse = static_cast<const float*>(ptrs[5]);
   bf16* dq = static_cast<bf16*>(const_cast<void*>(ptrs[6]));
   bf16* dk = static_cast<bf16*>(const_cast<void*>(ptrs[7]));
@@ -574,8 +578,8 @@ cudaError_t launch_bf16_dh(const void* const* ptrs, float* delta, int b, const B
             attn_bwd_dq_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
       return err;
     const dim3 grid_q(a.hq, b, (a.sq + kRows - 1) / kRows);
-    attn_bwd_dq_bf16_kernel<DH><<<grid_q, kThreads, smem, stream>>>(q, k, v, o, dout, lse, delta,
-                                                                    dq, a);
+    attn_bwd_dq_bf16_kernel<DH><<<grid_q, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dq,
+                                                                    a);
     if (cudaError_t err = cudaGetLastError()) return err;
   }
   if (a.sk == 0) return cudaSuccess;

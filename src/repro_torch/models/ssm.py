@@ -2,22 +2,27 @@
 
 Port of ``src/repro/models/ssm.py``.  The sequence is split into chunks of
 length Q; within a chunk the output is a masked quadratic form (the
-intra-chunk part, the ``ssd_scan`` kernel on the card); across chunks a state
-of shape (heads, head_dim, d_state) is carried by a loop over the chunks (the
-JAX package's ``lax.scan``).  ``ssm_decode_step`` is the O(1) single-token
-recurrence.  Real scalar-per-head A, B/C shared across heads (one group), a
-width-4 depthwise causal conv, as in the JAX package.
+intra-chunk part); across chunks a state of shape (heads, head_dim, d_state)
+is carried by a loop over the chunks (the JAX package's ``lax.scan``).  On
+the card the chunk's output, intra-chunk part, inter-chunk term and D skip,
+is one ``ssd_scan`` kernel launch (``ssd_chunk_scan``).  ``ssm_decode_step``
+is the O(1) single-token recurrence.  Real scalar-per-head A, B/C shared
+across heads (one group), a width-4 depthwise causal conv, as in the JAX
+package.
 
-``plain=True`` runs the plain versions (the in-line intra-chunk einsum and the
-plain RMSNorm) on any device.
+``plain=True`` runs the plain versions (the chunk scan of
+``kernels/ssd_scan/ref.py`` and the plain RMSNorm) on any device.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 from .layers import dense_init, rmsnorm_apply, rmsnorm_init
 
@@ -44,6 +49,15 @@ def ssm_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     }
 
 
+def _span(name: str):
+    """A profiler range named ``name`` around one pass of the chunked scan
+    (chip_smoke.py's ``[profile ssd_chunked]`` reads them); a null context,
+    which records nothing, when no profiler runs."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
+
+
 def _causal_conv(x, w, b):
     """x: (b, s, c); w: (k, c) depthwise; left-padded causal conv."""
     k, s = w.shape[0], x.shape[1]
@@ -59,20 +73,52 @@ def _split_proj(cfg, proj):
     return proj[..., :di], proj[..., di:2 * di + 2 * st], proj[..., 2 * di + 2 * st:]
 
 
-def _intra_plain(xc, dtc, cum, Bc, Cc):
-    """The JAX package's in-line intra-chunk einsum (``ssm.py:96-110``)."""
-    Q = xc.shape[2]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])   # (b, nc, Q, Q, nh)
-    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xc.device))
-    decay = torch.where(mask[None, None, :, :, None], decay, 0.0)
-    scores = torch.einsum("bcqs,bcus->bcqu", Cc.float(), Bc.float())  # (b, nc, Q, Q)
-    w = scores[..., None] * decay                                      # (b, nc, Q, Q, nh)
-    xdt = xc.float() * dtc[..., None]                                  # (b, nc, Q, nh, hd)
-    return torch.einsum("bcqun,bcunh->bcqnh", w, xdt)
+def _chunk_inputs(x, dt, A, B, C, chunk: int):
+    """What the chunk's output needs, in the chunked layout: (xc, dtc, cum, Bc,
+    Cc, h_prev, h_final).  The sequence is padded to whole chunks of Q =
+    min(chunk, s); cum (b, nc, Q, nh) is the within-chunk cumsum of dt * A;
+    h_prev (b, nc, nh, hd, st) f32 the state entering each chunk."""
+    b, s, nh, hd = x.shape
+    st = B.shape[-1]
+    Q = min(chunk, s)
+    pad = (-s) % Q
+    if pad:  # the padded tail has dt == 0: it neither adds to nor decays the state
+        with _span("ssd.pad"):
+            x = F.pad(x, (0, 0, 0, 0, 0, pad))
+            dt = F.pad(dt, (0, 0, 0, pad))
+            B = F.pad(B, (0, 0, 0, pad))
+            C = F.pad(C, (0, 0, 0, pad))
+    nc = x.shape[1] // Q
+
+    xc = x.reshape(b, nc, Q, nh, hd)
+    dtc = dt.reshape(b, nc, Q, nh)
+    Bc = B.reshape(b, nc, Q, st)
+    Cc = C.reshape(b, nc, Q, st)
+
+    with _span("ssd.cum"):
+        dA = dtc * A                                  # (b, nc, Q, nh) <= 0
+        cum = torch.cumsum(dA, dim=2)                 # within-chunk cumsum
+        seg_end = cum[:, :, -1, :]                    # total decay per chunk
+
+    # chunk-final states: h_c = sum_u exp(seg_end - cum_u) dt_u B_u x_u^T
+    with _span("ssd.contrib"):
+        state_decay = torch.exp(seg_end[:, :, None, :] - cum)       # (b, nc, Q, nh)
+        contrib = torch.einsum("bcqnh,bcqs->bcnhs", xc.float() * (state_decay * dtc)[..., None],
+                               Bc.float())                           # (b, nc, nh, hd, st)
+
+    # inter-chunk recurrence over nc: the state entering each chunk
+    with _span("ssd.recurrence"):
+        h = torch.zeros((b, nh, hd, st), dtype=torch.float32, device=x.device)
+        h_prev = []
+        for c in range(nc):
+            h_prev.append(h)
+            h = h * torch.exp(seg_end[:, c])[:, :, None, None] + contrib[:, c]
+        h_prev = torch.stack(h_prev, dim=1)                          # (b, nc, nh, hd, st)
+    return xc, dtc, cum, Bc, Cc, h_prev, h
 
 
 def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, plain: bool = False,
-                return_state: bool = False):
+                return_state: bool = False, out_dtype: torch.dtype = torch.float32):
     """Chunked SSD scan.
 
     x:  (b, s, nh, hd)   inputs per head
@@ -81,55 +127,23 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, plain: bool = False,
     B:  (b, s, st)       input projections (shared across heads)
     C:  (b, s, st)       output projections
     D:  (nh,)            skip
-    returns y (b, s, nh, hd) f32, and with ``return_state`` the final state
-    (b, nh, hd, st) f32.
+    returns y (b, s, nh, hd), summed in f32 and cast once to ``out_dtype``,
+    and with ``return_state`` the final state (b, nh, hd, st) f32.
+
+    The chunk states and the recurrence over the chunks run first; the
+    chunk's output (intra-chunk block, inter-chunk term, D skip, cast) is then
+    one ``ssd_chunk_scan`` call, the fused kernel on the card, or with
+    ``plain`` its plain version (``kernels/ssd_scan/ref.py``).
     """
-    b, s, nh, hd = x.shape
-    st = B.shape[-1]
-    Q = min(chunk, s)
-    pad = (-s) % Q
-    if pad:  # the padded tail has dt == 0: it neither adds to nor decays the state
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, pad))
-    L = x.shape[1]
-    nc = L // Q
-
-    xc = x.reshape(b, nc, Q, nh, hd)
-    dtc = dt.reshape(b, nc, Q, nh)
-    Bc = B.reshape(b, nc, Q, st)
-    Cc = C.reshape(b, nc, Q, st)
-
-    dA = dtc * A                                      # (b, nc, Q, nh) <= 0
-    cum = torch.cumsum(dA, dim=2)                     # within-chunk cumsum
-    seg_end = cum[:, :, -1, :]                        # total decay per chunk
-
-    # intra-chunk: y_intra[t] = C_t . sum_{u<=t} exp(cum_t - cum_u) dt_u B_u x_u
-    if plain:
-        y_intra = _intra_plain(xc, dtc, cum, Bc, Cc)
-    else:
-        y_intra = ssd_ops.ssd_intra_chunk(xc, dtc, cum, Bc, Cc)
-
-    # chunk-final states: h_c = sum_u exp(seg_end - cum_u) dt_u B_u x_u^T
-    xf = xc.float()
-    state_decay = torch.exp(seg_end[:, :, None, :] - cum)           # (b, nc, Q, nh)
-    contrib = torch.einsum("bcqnh,bcqs->bcnhs", xf * (state_decay * dtc)[..., None],
-                           Bc.float())                               # (b, nc, nh, hd, st)
-
-    # inter-chunk recurrence over nc: the state entering each chunk
-    h = torch.zeros((b, nh, hd, st), dtype=torch.float32, device=x.device)
-    h_prev = []
-    for c in range(nc):
-        h_prev.append(h)
-        h = h * torch.exp(seg_end[:, c])[:, :, None, None] + contrib[:, c]
-    h_prev = torch.stack(h_prev, dim=1)                              # (b, nc, nh, hd, st)
-
-    # inter-chunk output: y_inter[t] = C_t . exp(cum_t) h_prev
-    y_inter = torch.einsum("bcqs,bcnhs->bcqnh", Cc.float(), h_prev) * torch.exp(cum)[..., None]
-
-    y = (y_intra + y_inter).reshape(b, L, nh, hd)[:, :s]
-    y = y + xf.reshape(b, L, nh, hd)[:, :s] * D[None, None, :, None]
+    s = x.shape[1]
+    xc, dtc, cum, Bc, Cc, h_prev, h = _chunk_inputs(x, dt, A, B, C, chunk)
+    # y[t] = y_intra[t] + C_t . exp(cum_t) h_prev + D x_t, with
+    # y_intra[t] = C_t . sum_{u<=t} exp(cum_t - cum_u) dt_u B_u x_u
+    with _span("ssd.chunk_scan"):
+        if plain:
+            y = ssd_ref.ssd_chunk_scan(xc, dtc, cum, Bc, Cc, h_prev, D, s, out_dtype)
+        else:
+            y = ssd_ops.ssd_chunk_scan(xc, dtc, cum, Bc, Cc, h_prev, D, s, out_dtype)
     if return_state:
         return y, h
     return y
@@ -151,10 +165,9 @@ def ssm_apply(p, x, cfg, *, return_cache: bool = False, plain: bool = False):
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     out = ssd_chunked(xs, dt, A, B, C, p["D"], chunk=cfg.ssm_chunk, plain=plain,
-                      return_state=return_cache)
+                      return_state=return_cache, out_dtype=x.dtype)
     y, state = out if return_cache else (out, None)
-    y = y.reshape(b, s, di).to(x.dtype)
-    y = y * F.silu(z)
+    y = y.reshape(b, s, di) * F.silu(z)
     y = rmsnorm_apply(p["norm"], y, plain=plain)
     y = y @ p["out_proj"]
     if return_cache:

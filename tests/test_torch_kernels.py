@@ -547,6 +547,29 @@ def test_attention_bwd_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, dh,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,dh", [(2, 4, 4, 64, 64), (128, 14, 2, 64, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_bwd_bf16_one_hot_softmax_matches_f32(cuda_device, b, hq, hkv, s, dh, causal):
+    """q = k = v in bf16: each query's own key dominates its softmax, so dS =
+    P (dP - D) is a near-cancellation on the diagonal and D has to be exact in
+    f32.  Gradients against autograd of the f32 plain version on the same
+    bf16 values, at the training shape's head layout too."""
+    kv, do = _randn(18, (b, hkv, s, dh), (b, hq, s, dh))
+    kv = torch.from_numpy(kv).to(cuda_device, torch.bfloat16)
+    q = kv.repeat_interleave(hq // hkv, dim=1)
+    do = torch.from_numpy(do).to(cuda_device, torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, kv, kv)]
+    got = torch.autograd.grad(fa_ops.attention(*leaves, causal=causal), leaves, do)
+    leaves = [t.float().requires_grad_(True) for t in (q, kv, kv)]
+    want = torch.autograd.grad(fa_ref.attention(*leaves, causal=causal), leaves, do.float())
+    tol = ATTN_TOL["bfloat16"]
+    for name, a, bb in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == bb.shape
+        err = (a.float() - bb).abs().max().item()
+        assert torch.allclose(a.float(), bb, rtol=tol, atol=tol), f"{name}: max_abs_err {err}"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,hq,hkv,sq,sk,dh,window,valid_k,dtype", VALID_K_CASES)
 def test_attention_bwd_kernel_valid_k(cuda_device, b, hq, hkv, sq, sk, dh, window, valid_k,
                                       dtype):

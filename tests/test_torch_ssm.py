@@ -25,6 +25,7 @@ import repro_torch.models as tm
 from repro_torch.convert import params_from_jax
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan as scan_kernel
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
 from repro_torch.launch.serve import serve
 from repro_torch.models import ssm as tssm
@@ -469,7 +470,7 @@ def test_ssm_slice_on_card_matches_plain_path():
     params = tm.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     toks = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
                          generator=torch.Generator(device=dev).manual_seed(1))
-    ssd_kernel.launches = rn.launches = 0
+    ssd_kernel.launches = scan_kernel.launches = rn.launches = 0
     kl, kc = tm.prefill(params, cfg, {"tokens": toks[:, :K]}, max_seq=S)
     pl, pc = tm.prefill(params, cfg, {"tokens": toks[:, :K]}, max_seq=S, plain=True)
     torch.testing.assert_close(kl, pl, **PREFILL_TOL)
@@ -478,5 +479,6 @@ def test_ssm_slice_on_card_matches_plain_path():
         pl, pc = tm.decode_step(params, cfg, pc, toks[:, t:t + 1], t, plain=True)
         torch.testing.assert_close(kl, pl, **PREFILL_TOL)
     L = cfg.num_layers
-    assert ssd_kernel.launches == L
+    # one fused chunk scan per block, none of the intra-chunk entry
+    assert (scan_kernel.launches, ssd_kernel.launches) == (L, 0)
     assert rn.launches == (2 * L + 1) * (1 + S - K)
