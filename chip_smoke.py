@@ -9,7 +9,8 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       each kernel's ptxas registers, shared memory and spills;
                       fails unless every bf16 attention and ssd_scan kernel's
                       SASS holds HMMA (tensor-core) instructions and none
-                      spills at head dim 64;
+                      spills at head dim 64, and unless both gate-window
+                      kernels build unspilled in all four row buckets;
   3. rmsnorm       -- the kernel against its plain PyTorch version on the card;
   4. attention     -- the kernel against its plain PyTorch version on the card,
                       f32 (CUDA cores) and bf16 (tensor cores), the bf16 edges
@@ -55,14 +56,20 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       then one f32 coded gradient at 2 layers (full widths and
                       vocab) against the full-batch gradient and the plain path;
  12. gate_window   -- both gate-window kernels against their plain versions,
-                      exact, over windows of 0-32 rows, ragged n, strided views;
+                      exact, over windows of 0-32 rows (every row bucket's
+                      edges), ragged n, (4096, 3, 256) and 5,000 cells (past
+                      one wave of blocks), strided, misaligned and stride-2
+                      views (the byte path); fails unless the gate's
+                      own tails and concatenated windows at (64, rows, 256)
+                      take the wide path (16-byte loads);
  13. sim           -- ``simulate_batch`` on the Table-1 grid (n 256, 4 schemes,
                       64 Gilbert-Elliott traces of 44 rounds) in both wait-outs,
                       on the card and on the CPU: equal under the simulator's
                       device contract, and equal to the descriptor ``simulate``
                       on 4 traces; the kernels launch exactly as often as the
-                      CPU run calls their plain versions.  Wall per scheme, host
-                      syncs per round, a profiled run's busy time per round;
+                      CPU run calls their plain versions, all on the wide
+                      path.  Wall per scheme, host syncs per round, a profiled
+                      run's busy time per round;
  14. select        -- App.-J ``select_parameters`` on the card for m-sgc and gc
                       at n 256 (30-round probe) equals ``select_parameters_legacy``;
  15. adaptive      -- ``run_adaptive`` at Fig. 18's configuration (n 64, 60 jobs,
@@ -75,7 +82,10 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       at the prefill's and the coded step's shapes, with SDPA
                       (or its autograd) and each kernel's ptxas line; both
                       ssd_scan entries, the fused one beside the torch passes
-                      it replaces.
+                      it replaces; both gate-window kernels also at (4096, 3,
+                      256), each beside a one-element fill_ (the launch floor)
+                      in one profiler session, and the wrappers' four output
+                      allocations against one carved into the four.
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -300,6 +310,12 @@ def main() -> None:
     bf16_ssd = [label for label in ssd if label.startswith("ssd_bf16_kernel<")]
     if len(bf16_ssd) != 12 or not all(ssd[label] for label in bf16_ssd):
         fail(f"the bf16 ssd_scan kernels' SASS lacks tensor-core instructions: {ssd}")
+    # both gate-window kernels in every row bucket (<= 4, 8, 16, 32), unspilled
+    gate = {label: line for label, line in ptxas.items()
+            if label.startswith(("window_stats_kernel<", "buffer_stats_kernel<"))}
+    if len(gate) != 8 or any("0 bytes spill stores, 0 bytes spill loads" not in line
+                             for line in gate.values()):
+        fail(f"the gate-window kernels spill or lack a row bucket: {gate}")
     for label in ("attn_fwd_bf16_kernel<64>", "attn_bwd_dq_bf16_kernel<64>",
                   "attn_bwd_dkdv_bf16_kernel<64>",
                   *[label for label in bf16_ssd if ", 64, " in label]):
@@ -844,9 +860,13 @@ def _sim_parity(ref, got, exact: bool) -> bool:
 
 def _gate_window_check(dev) -> dict:
     """Both gate-window kernels against their plain versions on the card,
-    exact: windows of 0-32 rows, B from 1 to past the window, ragged and
-    small n, one cell, the main path's (64, rows, 256), strided views and a
-    folded spec axis.  Returns the largest integer difference per kernel."""
+    exact: windows of 0-32 rows (every row bucket's edges), B from 1 to past the
+    window, ragged and small n, one cell, the main path's (64, rows, 256),
+    (4096, 3, 256) and 5,000 cells (past one wave of blocks), strided,
+    misaligned and stride-2 views, a folded spec axis;
+    and the views the gate builds (each window's tail at every fill, the
+    windows it concatenates), which must take the wide path.  Returns the
+    largest integer difference per kernel."""
     import numpy as np
     import torch
 
@@ -856,11 +876,19 @@ def _gate_window_check(dev) -> dict:
     rng = np.random.default_rng(0)
     worst = {"window_stats": 0, "buffer_stats": 0}
     checked = 0
+    paths = {True: 0, False: 0}
 
-    def check(which, x, B):
+    def check(which, x, B, wide=None):
         nonlocal checked
+        kernel = getattr(gwk, which)
+        before = kernel.wide_launches
         got = getattr(ops, which)(x, B)
         want = getattr(ref, which)(x, B)
+        took = kernel.wide_launches > before
+        if wide is not None and took != wide:
+            fail(f"gate_window {which} {tuple(x.shape)} strides {x.stride()}: the "
+                 f"{'wide' if took else 'byte'} path, not the {'wide' if wide else 'byte'} one")
+        paths[took] += 1
         for g, w in zip(got, want):
             if g.dtype != w.dtype or g.shape != w.shape:
                 fail(f"gate_window {which} {tuple(x.shape)} B {B}: {g.dtype} {tuple(g.shape)} "
@@ -872,17 +900,43 @@ def _gate_window_check(dev) -> dict:
                      f"version by {err}")
         checked += 1
 
-    for rows in (0, 1, 2, 3, 5, 10, 32):
+    for rows in (0, 1, 2, 3, 4, 5, 8, 9, 10, 16, 17, 32):
         for cells, n in ((1, 7), (5, 33), (37, 130), (64, 256), (3000, 40)):
             x = torch.from_numpy(rng.random((cells, rows, n)) < 0.3).to(dev)
             for B in sorted({1, 2, 3, max(rows, 1), rows + 1}):
                 check("buffer_stats", x, B)
                 if rows:
                     check("window_stats", x, B)
+    # (4096, 3, 256), and more cells than the one wave of blocks the grid holds
+    for cells in (4096, 5000):
+        x = torch.from_numpy(rng.random((cells, 3, 256)) < 0.05).to(dev)
+        for B in (1, 2, 4):
+            for which in ("window_stats", "buffer_stats"):
+                check(which, x, B, wide=True)
     x = torch.from_numpy(rng.random((3, 37, 5, 130)) < 0.3).to(dev)
     for view in (x, x[1][:, 2:], x[:, :, 1:4].transpose(0, 1)[5], x[2, ::2, ::2, 1::3]):
         for which in ("window_stats", "buffer_stats"):
             check(which, view, 2)
+    # views that cannot take 16-byte loads: a misaligned start, a stride-2
+    # worker axis, rows off 16 bytes; and aligned rows whose last run n cuts
+    x = torch.from_numpy(rng.random((37, 5, 320)) < 0.3).to(dev)
+    for view, wide in ((x[:, :, 1:257], False), (x[:, :, ::2], False),
+                       (x[:, :, :260].contiguous(), False), (x[:, :, :250], True)):
+        for which in ("window_stats", "buffer_stats"):
+            check(which, view, 2, wide=wide)
+    # the gate's own views at the main path's (64, rows, 256): each window's
+    # tail buf[:, w-1-filled:] at every fill, and torch.cat([tail, cand[:, None]])
+    gate_views = 0
+    cand = torch.from_numpy(rng.random((64, 256)) < 0.3).to(dev)
+    for w in (2, 3, 4, 11):
+        buf = torch.from_numpy(rng.random((64, w - 1, 256)) < 0.3).to(dev)
+        for filled in range(w):
+            tail = buf[:, w - 1 - min(filled, w - 1):]
+            win = torch.cat([tail, cand[:, None]], dim=1) if tail.shape[1] else cand[:, None]
+            for B in (1, 2, tail.shape[1] + 1):
+                check("buffer_stats", tail, B, wide=True)
+                check("window_stats", win, B, wide=True)
+                gate_views += 2
     for fn in (gwk.window_stats, gwk.buffer_stats):
         try:
             fn(torch.zeros(2, 33, 8, dtype=torch.bool, device=dev), 1)
@@ -891,7 +945,9 @@ def _gate_window_check(dev) -> dict:
             pass
     torch.cuda.synchronize()
     say("gate_window", f"{checked} cases of both kernels exact against their plain versions "
-                       f"(largest difference {max(worst.values())}); 33 rows refused")
+                       f"(largest difference {max(worst.values())}); wide path {paths[True]}, "
+                       f"byte path {paths[False]} launches; the gate's {gate_views} "
+                       f"tails and windows at (64, rows, 256) all wide; 33 rows refused")
     return worst
 
 
@@ -916,7 +972,8 @@ def _sim(dev) -> dict:
     for waitout in ("selective", "all"):
         for name, params in SIM_PARAMS.items():
             spec = [(name, params)]
-            gwk.window_stats.launches = gwk.buffer_stats.launches = 0
+            for k in (gwk.window_stats, gwk.buffer_stats):
+                k.launches = k.wide_launches = 0
             GateKernel.host_syncs = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -924,6 +981,10 @@ def _sim(dev) -> dict:
                                  device=dev)[0, 0]
             wall = time.perf_counter() - t0
             launched = (gwk.window_stats.launches, gwk.buffer_stats.launches)
+            if (gwk.window_stats.wide_launches, gwk.buffer_stats.wide_launches) != launched:
+                fail(f"sim {name} {waitout}: of the launches {launched}, "
+                     f"{gwk.window_stats.wide_launches} and {gwk.buffer_stats.wide_launches} "
+                     f"took the wide path")
             syncs = GateKernel.host_syncs
             gwr.window_stats.calls = gwr.buffer_stats.calls = 0
             t0 = time.perf_counter()
@@ -952,7 +1013,8 @@ def _sim(dev) -> dict:
             say("sim", f"{name} {params} {waitout}: {SIM['traces']} cells x {rounds} rounds at n "
                        f"{n} in {wall * 1e3:.3f} ms on the card ({cpu_wall * 1e3:.3f} ms on the "
                        f"CPU); {syncs / rounds:.3f} host syncs per round; launches window_stats "
-                       f"{launched[0]}, buffer_stats {launched[1]} (= plain calls on the CPU); "
+                       f"{launched[0]}, buffer_stats {launched[1]} (= plain calls on the CPU, all on "
+                       f"the wide path); "
                        f"mean total time {mean:.6f} s, waitouts "
                        f"{sum(r.waitouts for r in got)}")
     say("sim", f"card vs CPU: {cells} cells agree (exact on {exact_cells}); descriptor simulate "
@@ -1036,7 +1098,11 @@ def _adaptive(dev) -> None:
 
 def _gate_window_timings(dev) -> list:
     """Timing rows of the gate-window kernels at the Table-1 grid's shapes:
-    m-sgc's 2-row bursty buffer and its 3-row all-or-nothing window."""
+    m-sgc's 2-row bursty buffer and its 3-row all-or-nothing window.  Printed
+    beside them: both at (4096, 3, 256), where the bytes begin to count; the
+    launch floor, a one-element ``fill_``, profiled in the same session as each
+    kernel; and the host cost of the wrappers' four ``torch.empty`` calls
+    against one allocation carved into the four outputs."""
     import numpy as np
     import torch
 
@@ -1044,23 +1110,74 @@ def _gate_window_timings(dev) -> list:
     from repro_torch.kernels.gate_window import ref as gwr
 
     rng = np.random.default_rng(1)
-    cells, n = SIM["traces"], SIM["n"]
-    rows = []
-    for name, fn, plain, k, replaces in (
-        ("buffer_stats", gwk.buffer_stats, gwr.buffer_stats, 2, 72),
-        ("window_stats", gwk.window_stats, gwr.window_stats, 3, 54),
-    ):
-        x = torch.from_numpy(rng.random((cells, k, n)) < 0.05).to(dev)
-        outs = fn(x, 2)
-        n_bytes = x.numel() + sum(o.numel() * o.element_size() for o in outs)
-        # per element: a load, a compare, a shift-or and a ballot share; a
-        # handful of popcounts and reductions per worker column
-        rows.append(_timed(
-            name, "src/repro_torch/kernels/csrc/gate_window.cu",
-            f"src/repro/kernels/gate_window/gate_window.py:{replaces}", tuple(x.shape),
-            lambda fn=fn, x=x: fn(x, 2), lambda plain=plain, x=x: plain(x, 2), None,
-            n_bytes, 4 * x.numel() + 8 * cells * n, "f32", iters=500,
-        ))
+    n = SIM["n"]
+    rows, extra, floors = [], [], []
+    one = torch.zeros(1, device=dev)
+    for cells in (SIM["traces"], 4096):
+        for name, fn, plain, k, replaces in (
+            ("buffer_stats", gwk.buffer_stats, gwr.buffer_stats, 2, 72),
+            ("window_stats", gwk.window_stats, gwr.window_stats, 3, 54),
+        ):
+            k = k if cells == SIM["traces"] else 3
+            x = torch.from_numpy(rng.random((cells, k, n)) < 0.05).to(dev)
+            outs = fn(x, 2)
+            n_bytes = x.numel() + sum(o.numel() * o.element_size() for o in outs)
+            # per byte: an OR, an add, the first/last updates and a dp4a share,
+            # about 4 integer operations; about 8 a worker for stores and sums
+            row = _timed(
+                name, "src/repro_torch/kernels/csrc/gate_window.cu",
+                f"src/repro/kernels/gate_window/gate_window.py:{replaces}", tuple(x.shape),
+                lambda fn=fn, x=x: fn(x, 2), lambda plain=plain, x=x: plain(x, 2), None,
+                n_bytes, 4 * x.numel() + 8 * cells * n, "f32", iters=500,
+            )
+            (rows if cells == SIM["traces"] else extra).append(row)
+            # the launch floor in the same profiler session: fill_ and the
+            # kernel in turns, told apart by name
+            events = _device_events(lambda fn=fn, x=x: [(one.fill_(1.0), fn(x, 2))
+                                                        for _ in range(500)])
+            kern = [t for e, t in events if "stats_kernel" in e]
+            fill = [t for e, t in events if "stats_kernel" not in e]
+            floors += fill
+            if not kern or not fill:
+                say("timings", f"FLAG {name} {tuple(x.shape)}: the profiler recorded {len(kern)} "
+                               f"kernel and {len(fill)} fill_ activities beside the floor")
+                continue
+            say("timings", f"{name} {tuple(x.shape)} beside the floor, one profiler session: "
+                           f"kernel median {statistics.median(kern):.3f} us (mean "
+                           f"{statistics.mean(kern):.3f}, {len(kern)} recorded), one-element "
+                           f"fill_ median {statistics.median(fill):.3f} us (mean "
+                           f"{statistics.mean(fill):.3f}, {len(fill)} recorded); bound "
+                           f"{row['bound_ms'] * 1e3:.4f} us by bytes")
+    if floors:
+        say("timings", f"gate floor: one-element fill_ median {statistics.median(floors):.3f} us "
+                       f"over {len(floors)} launches in {len(rows + extra)} sessions")
+    for r in extra:
+        say("timings", f"{r['name']} {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+                       f"{r['plain_ms']:.5f} ms, bound {r['bound_ms']:.5f} ms by {r['bound_by']} "
+                       f"({_rates(r)}); per call with host overhead: kernel {r['call_ms']:.5f}, "
+                       f"plain {r['plain_call_ms']:.5f}")
+    # host cost of the outputs: the wrappers make four torch.empty calls, which
+    # measured cheaper than one allocation carved into the four
+    cells, m = SIM["traces"], SIM["traces"] * n
+
+    def carved():
+        block = torch.empty(6 * m + cells, dtype=torch.uint8, device=dev)
+        act, md = block[4 * m:6 * m].view(torch.bool).view(2, cells, n)
+        return act, block[:4 * m].view(torch.int32).view(cells, n), md, block[6 * m:].view(
+            torch.bool)
+
+    def four():
+        return (torch.empty((cells, n), dtype=torch.bool, device=dev),
+                torch.empty((cells, n), dtype=torch.int32, device=dev),
+                torch.empty((cells, n), dtype=torch.bool, device=dev),
+                torch.empty(cells, dtype=torch.bool, device=dev))
+
+    x = torch.from_numpy(rng.random((cells, 2, n)) < 0.05).to(dev)
+    t = [_cuda_ms(lambda f=f: gwk._launch("gate_buffer_stats", x, 2, f()), 500)
+         for f in (carved, four, carved, four)]
+    say("timings", f"buffer_stats outputs and launch per call, host-bound: one carved "
+                   f"allocation {t[0]:.5f}, {t[2]:.5f} ms; four torch.empty {t[1]:.5f}, "
+                   f"{t[3]:.5f} ms")
     torch.cuda.synchronize()
     return rows
 

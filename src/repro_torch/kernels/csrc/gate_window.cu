@@ -11,18 +11,38 @@
 // Replaces the TPU kernels src/repro/kernels/gate_window/gate_window.py::
 // _stats_kernel and ::_buffer_kernel.
 //
-// Bound: device-memory bytes.  Each input byte is read once and each output
-// written once; the work is a few integer operations per byte.  At the gate's
-// sizes (tens of KB) the launch itself takes longer than either bound.
+// Bound: at the gate's sizes, the launch.  Each input byte is read once and
+// each output written once, a few integer operations per byte; at (64, 3, 256)
+// that is 50 KB, 15 ns at the card's memory rate, far below what any launch
+// takes.  So the design keeps one round trip to memory between launch and
+// exit, and spreads the cells over the SMs.  The tensor cores, TMA and wgmma
+// have nothing to offer here: there is no product, and a cell's rows are a
+// few hundred bytes.
 //
-// Design: one warp per cell, over a grid-stride loop of cells, so any cell count
-// is taken.  Lane l walks worker columns l, l+32, ... and packs that worker's
-// straggles into a bitmask m, bit r for row r.  Then act is m != 0, cnt is
-// popc(m), md is m restricted to rows 0..rows-B, and the pairs d rows apart are
-// popc(m & (m >> d)).  A row's straggler count is the popc of one warp ballot,
-// kept by lane r.  Warp shuffles reduce the per-cell values.  The bytes are read
-// in place through the caller's strides: no int32 copy and no padding, which
-// the TPU kernel needs for its 128 lanes.  rows <= 32, the width of the mask.
+// Design.  One warp a block and one cell a block at a time, over a grid-stride
+// loop of cells (a folded spec axis is more cells): at the gate's 64 cells, 64
+// blocks on 64 SMs.  Lane l owns runs of 16 workers (16l, 16l + 512, ...) and
+// loads each run's byte of every row before it uses any of them: one 16-byte
+// load a row, the row count a template bucket (<= 4, 8, 16, 32), so the loads
+// unroll into registers and are all in flight together.  A run is four 32-bit
+// words of 0/1 bytes, one byte a worker, combined a word at a time:
+//   act, distinct:    OR over the rows; a count is dp4a(word, 0x01010101);
+//   cnt, worker_max:  bytewise sum over the rows (<= 32, fits a byte);
+//   md:               OR over rows 0..rows-B;
+//   round_max:        dp4a row counts, summed over the warp;
+//   pair_bad:         a worker straggles twice d >= max(B, 1) rows apart iff its
+//                     last straggle row minus its first is >= d; first and last
+//                     are kept a byte a worker, and the test is one add into
+//                     each byte's top bit.  (The suffix-OR rule, v_r & OR of
+//                     rows >= r + d, says the same, but needs a run-time row
+//                     index into the registers.)
+// Warp totals are single REDUX instructions (__reduce_{add,max,or}_sync).
+//
+// Any strides are read.  The wrapper says whether the view takes the wide path
+// (workers adjacent, every row start 16-byte aligned), checked here again; a
+// view that does not (a worker stride other than 1, rows or a start off 16
+// bytes), and a run cut short by n, is read byte by byte into the same words.
+// rows <= 32.
 
 #include <stdint.h>
 
@@ -30,138 +50,293 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = 32;            // one warp a block
+constexpr int kRun = 16;                // workers a lane owns: one 16-byte load a row
 constexpr int kMaxRows = 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr uint32_t kOnes = 0x01010101u;
+// resident one-warp blocks of an H100 (132 SMs x 32): one wave; more cells
+// than this are taken by the grid-stride loop
+constexpr long long kMaxBlocks = 132 * 32;
 
 struct Window {
   const uint8_t* x;
   long long cells, n, sc, sr, sw;  // element strides of cells, rows, workers
   int rows, B;
+  bool wide;                       // 16-byte loads of whole runs
 };
 
-// Bitmask of the rows in which worker `col` straggles; lane r adds row r's
-// straggler count among the warp's 32 columns to *row_count.
-__device__ __forceinline__ uint32_t column_mask(const Window& w, const uint8_t* cell,
-                                                long long col, int lane, int* row_count) {
-  const bool in = col < w.n;
-  uint32_t m = 0;
-  for (int r = 0; r < w.rows; ++r) {
-    const bool bit = in && cell[r * w.sr + col * w.sw] != 0;
-    m |= static_cast<uint32_t>(bit) << r;
-    const int c = __popc(__ballot_sync(kFull, bit));
-    if (lane == r) *row_count += c;
+// 16 workers' 0/1 bytes: worker 4i + b of the run is byte b of w[i].
+struct Run {
+  uint32_t w[4];
+};
+
+// 1 in each byte of v that is not 0 (a bool byte is 0 or 1 already).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t v) {
+  return ((((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) >> 7) & kOnes;
+}
+
+// Rows 0..R-1 of the run of workers j0.. of one cell; rows >= w.rows and
+// workers >= n read as 0.  On the wide path every row's 16-byte load is issued
+// before any is used.  The byte path is for views the gate does not pass; it
+// keeps four loads in flight: sixteen a row, unrolled, would hold a register
+// each and spill at 16 rows.
+template <int R>
+__device__ __forceinline__ void load_rows(const Window& w, const uint8_t* cell, long long j0,
+                                          Run (&v)[R]) {
+  if (w.wide && j0 + kRun <= w.n) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      // only the load is conditional, so it is predicated, not branched around
+      uint4 q = make_uint4(0u, 0u, 0u, 0u);
+      if (r < w.rows) q = __ldg(reinterpret_cast<const uint4*>(cell + r * w.sr + j0));
+      v[r].w[0] = nonzero_bytes(q.x);
+      v[r].w[1] = nonzero_bytes(q.y);
+      v[r].w[2] = nonzero_bytes(q.z);
+      v[r].w[3] = nonzero_bytes(q.w);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      v[r].w[0] = v[r].w[1] = v[r].w[2] = v[r].w[3] = 0u;
+      if (r >= w.rows) continue;
+      const uint8_t* row = cell + r * w.sr;
+#pragma unroll 1
+      for (int i = 0; i < 4; ++i) {
+        uint32_t word = 0u;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const long long col = j0 + 4 * i + k;
+          if (col < w.n && __ldg(row + col * w.sw) != 0) word |= 1u << (8 * k);
+        }
+        // selects, not a run-time index into the registers
+        v[r].w[0] |= i == 0 ? word : 0u;
+        v[r].w[1] |= i == 1 ? word : 0u;
+        v[r].w[2] |= i == 2 ? word : 0u;
+        v[r].w[3] |= i == 3 ? word : 0u;
+      }
+    }
   }
-  return m;
 }
 
-// Same-worker straggle pairs d >= B rows apart (d >= 1: B <= 0 counts as 1).
-__device__ __forceinline__ int pairs(uint32_t m, int rows, int B) {
-  int p = 0;
-  for (int d = max(B, 1); d < rows; ++d) p += __popc(m & (m >> d));
-  return p;
+// What both kernels take from a run: OR and bytewise sum over the rows, and
+// whether a worker straggles twice >= d rows apart (the word's top bits).
+struct RunStats {
+  Run any, sum;
+  uint32_t pair;
+};
+
+template <int R>
+__device__ __forceinline__ RunStats run_stats(const Run (&v)[R], int d, bool pairs) {
+  RunStats s;
+  Run first, last;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) s.any.w[i] = s.sum.w[i] = first.w[i] = last.w[i] = 0u;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {  // rows past w.rows are 0 and change nothing
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t m = v[r].w[i] * 0xffu;  // 0xff where the worker straggles
+      s.any.w[i] |= v[r].w[i];
+      s.sum.w[i] += v[r].w[i];
+      last.w[i] = (last.w[i] & ~m) | (m & (r * kOnes));
+      const int q = R - 1 - r;  // first: the same, from the last row down
+      const uint32_t mq = v[q].w[i] * 0xffu;
+      first.w[i] = (first.w[i] & ~mq) | (mq & (q * kOnes));
+    }
+  }
+  // last >= first in every byte (both 0 for an idle worker), so one 32-bit
+  // subtraction is bytewise; a difference <= 31 plus 128 - d sets a byte's top
+  // bit iff it is >= d (1 <= d < rows <= 32, so no byte carries)
+  s.pair = 0u;
+  if (pairs) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      s.pair |= (last.w[i] - first.w[i] + static_cast<uint32_t>(128 - d) * kOnes) & 0x80808080u;
+  }
+  return s;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
+__device__ __forceinline__ int count_bytes(const Run& v) {  // of 0/1 bytes
+  uint32_t c = 0u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) c = __dp4a(v.w[i], kOnes, c);
+  return static_cast<int>(c);
 }
 
-__device__ __forceinline__ int warp_max(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(kFull, v, o));
-  return v;
+__device__ __forceinline__ int max_byte(const Run& v) {
+  uint32_t m = __vmaxu4(__vmaxu4(v.w[0], v.w[1]), __vmaxu4(v.w[2], v.w[3]));
+  m = __vmaxu4(m, m >> 16);
+  m = __vmaxu4(m, m >> 8);
+  return static_cast<int>(m & 0xffu);
 }
 
+template <int R>
 __global__ void __launch_bounds__(kThreads)
 window_stats_kernel(Window w, int* __restrict__ distinct, int* __restrict__ worker_max,
                     int* __restrict__ round_max, bool* __restrict__ pair_bad) {
-  const int lane = threadIdx.x & 31;
-  const long long step = (long long)gridDim.x * kWarps;
-  for (long long c = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); c < w.cells; c += step) {
+  const int lane = threadIdx.x;
+  const int d = max(w.B, 1);
+  const bool pairs = d < w.rows;
+  for (long long c = blockIdx.x; c < w.cells; c += gridDim.x) {
     const uint8_t* cell = w.x + c * w.sc;
-    int dist = 0, wmax = 0, pair = 0, row_count = 0;
-    for (long long c0 = 0; c0 < w.n; c0 += 32) {  // uniform trip count: ballots need the warp
-      const uint32_t m = column_mask(w, cell, c0 + lane, lane, &row_count);
-      dist += m != 0;
-      wmax = max(wmax, __popc(m));
-      pair += pairs(m, w.rows, w.B);
+    int dist = 0, wmax = 0, rc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) rc[r] = 0;
+    uint32_t pair = 0u;
+    for (long long j0 = (long long)lane * kRun; j0 < w.n; j0 += kThreads * kRun) {
+      Run v[R];
+      load_rows<R>(w, cell, j0, v);
+      const RunStats s = run_stats<R>(v, d, pairs);
+#pragma unroll
+      for (int r = 0; r < R; ++r) rc[r] += count_bytes(v[r]);
+      dist += count_bytes(s.any);
+      wmax = max(wmax, max_byte(s.sum));
+      pair |= s.pair;
     }
-    dist = warp_sum(dist);
-    wmax = warp_max(wmax);
-    pair = warp_sum(pair);
-    const int rmax = warp_max(row_count);  // lanes >= rows hold 0
+    int rmax = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (r < w.rows) rmax = max(rmax, __reduce_add_sync(kFull, rc[r]));
+    dist = __reduce_add_sync(kFull, dist);
+    wmax = __reduce_max_sync(kFull, wmax);
+    pair = __reduce_or_sync(kFull, pair);
     if (lane == 0) {
       distinct[c] = dist;
       worker_max[c] = wmax;
       round_max[c] = rmax;
-      pair_bad[c] = pair > 0;
+      pair_bad[c] = pair != 0u;
     }
   }
 }
 
+// The bytes of a word as four int32.
+__device__ __forceinline__ int4 widen(uint32_t v) {
+  return make_int4(__byte_perm(v, 0u, 0x4440), __byte_perm(v, 0u, 0x4441),
+                   __byte_perm(v, 0u, 0x4442), __byte_perm(v, 0u, 0x4443));
+}
+
+template <int R>
 __global__ void __launch_bounds__(kThreads)
-buffer_stats_kernel(Window w, bool* __restrict__ act, int* __restrict__ cnt,
+buffer_stats_kernel(Window w, bool wide_out, bool* __restrict__ act, int* __restrict__ cnt,
                     bool* __restrict__ md, bool* __restrict__ pair_bad) {
-  const int lane = threadIdx.x & 31;
-  const long long step = (long long)gridDim.x * kWarps;
+  const int lane = threadIdx.x;
+  const int d = max(w.B, 1);
+  const bool pairs = d < w.rows;
   // rows 0..rows-B pair-violate with the candidate row the gate appends at `rows`
-  const uint32_t md_rows =
-      w.rows >= w.B ? static_cast<uint32_t>((1ull << (w.rows - max(w.B, 1) + 1)) - 1) : 0u;
-  for (long long c = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); c < w.cells; c += step) {
+  const long long md_last = (long long)w.rows - w.B;
+  for (long long c = blockIdx.x; c < w.cells; c += gridDim.x) {
     const uint8_t* cell = w.x + c * w.sc;
-    int pair = 0, row_count = 0;
-    for (long long c0 = 0; c0 < w.n; c0 += 32) {
-      const long long col = c0 + lane;
-      const uint32_t m = column_mask(w, cell, col, lane, &row_count);
-      pair += pairs(m, w.rows, w.B);
-      if (col < w.n) {
-        const long long o = c * w.n + col;
-        act[o] = m != 0;
-        cnt[o] = __popc(m);
-        md[o] = (m & md_rows) != 0;
+    uint32_t pair = 0u;
+    for (long long j0 = (long long)lane * kRun; j0 < w.n; j0 += kThreads * kRun) {
+      Run v[R];
+      load_rows<R>(w, cell, j0, v);
+      const RunStats s = run_stats<R>(v, d, pairs);
+      Run m;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        m.w[i] = 0u;
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (r <= md_last) m.w[i] |= v[r].w[i];
+      }
+      pair |= s.pair;
+      const long long o = c * w.n + j0;
+      if (wide_out) {  // n % 16 == 0: whole runs, 16-byte aligned outputs
+        *reinterpret_cast<uint4*>(act + o) = make_uint4(s.any.w[0], s.any.w[1], s.any.w[2],
+                                                        s.any.w[3]);
+        *reinterpret_cast<uint4*>(md + o) = make_uint4(m.w[0], m.w[1], m.w[2], m.w[3]);
+        int4* out = reinterpret_cast<int4*>(cnt + o);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) out[i] = widen(s.sum.w[i]);
+      } else {
+#pragma unroll
+        for (int b = 0; b < kRun; ++b) {
+          if (j0 + b < w.n) {
+            const int shift = 8 * (b & 3);
+            act[o + b] = (s.any.w[b >> 2] >> shift) & 1u;
+            md[o + b] = (m.w[b >> 2] >> shift) & 1u;
+            cnt[o + b] = static_cast<int>((s.sum.w[b >> 2] >> shift) & 0xffu);
+          }
+        }
       }
     }
-    pair = warp_sum(pair);
-    if (lane == 0) pair_bad[c] = pair > 0;
+    pair = __reduce_or_sync(kFull, pair);
+    if (lane == 0) pair_bad[c] = pair != 0u;
   }
 }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 cudaError_t prepare(const Window& w, int device, unsigned* blocks) {
   if (w.cells < 0 || w.n < 0 || w.rows < 0 || w.rows > kMaxRows) return cudaErrorInvalidValue;
+  // the wrapper's wide flag, checked: workers adjacent, every row start aligned
+  if (w.wide && !(w.sw == 1 && aligned16(w.x) && (w.sr % 16 == 0 || w.rows <= 1) &&
+                  (w.sc % 16 == 0 || w.cells <= 1)))
+    return cudaErrorMisalignedAddress;
   if (cudaError_t err = cudaSetDevice(device)) return err;
-  const long long need = (w.cells + kWarps - 1) / kWarps;
-  *blocks = static_cast<unsigned>(need < 65535 ? need : 65535);  // grid-stride beyond
+  *blocks = static_cast<unsigned>(w.cells < kMaxBlocks ? w.cells : kMaxBlocks);
   return cudaSuccess;
+}
+
+template <int R>
+void launch_window(const Window& w, unsigned blocks, cudaStream_t s, int* distinct,
+                   int* worker_max, int* round_max, bool* pair_bad) {
+  window_stats_kernel<R><<<blocks, kThreads, 0, s>>>(w, distinct, worker_max, round_max,
+                                                     pair_bad);
+}
+
+template <int R>
+void launch_buffer(const Window& w, unsigned blocks, cudaStream_t s, bool wide_out, bool* act,
+                   int* cnt, bool* md, bool* pair_bad) {
+  buffer_stats_kernel<R><<<blocks, kThreads, 0, s>>>(w, wide_out, act, cnt, md, pair_bad);
 }
 
 }  // namespace
 
-// win: bool (cells, rows, n) at element strides (sc, sr, sw); outputs (cells,)
-// contiguous.  Returns the launch's cudaError_t (0 on success).
+// win: bool (cells, rows, n) at element strides (sc, sr, sw), wide as the
+// wrapper's gate_window.wide_path says; outputs (cells,) contiguous.  Returns
+// the launch's cudaError_t (0 on success).
 extern "C" int gate_window_stats(const void* win, long long cells, int rows, long long n,
-                                 long long sc, long long sr, long long sw, int B, int* distinct,
-                                 int* worker_max, int* round_max, bool* pair_bad, int device,
-                                 void* stream) {
-  const Window w{static_cast<const uint8_t*>(win), cells, n, sc, sr, sw, rows, B};
+                                 long long sc, long long sr, long long sw, int B, int wide,
+                                 int* distinct, int* worker_max, int* round_max, bool* pair_bad,
+                                 int device, void* stream) {
+  const Window w{static_cast<const uint8_t*>(win), cells, n, sc, sr, sw, rows, B, wide != 0};
   unsigned blocks = 0;
   if (cudaError_t err = prepare(w, device, &blocks)) return err;
   if (cells == 0) return cudaSuccess;
-  window_stats_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      w, distinct, worker_max, round_max, pair_bad);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (rows <= 4)
+    launch_window<4>(w, blocks, s, distinct, worker_max, round_max, pair_bad);
+  else if (rows <= 8)
+    launch_window<8>(w, blocks, s, distinct, worker_max, round_max, pair_bad);
+  else if (rows <= 16)
+    launch_window<16>(w, blocks, s, distinct, worker_max, round_max, pair_bad);
+  else
+    launch_window<32>(w, blocks, s, distinct, worker_max, round_max, pair_bad);
   return cudaGetLastError();
 }
 
-// buf: bool (cells, rows, n) at element strides (sc, sr, sw); act, cnt, md
-// (cells, n) and pair_bad (cells,) contiguous.  rows == 0 writes zeros.
+// buf: bool (cells, rows, n) at element strides (sc, sr, sw), wide as above;
+// act, cnt, md (cells, n) and pair_bad (cells,) contiguous.  rows == 0 writes
+// zeros.
 extern "C" int gate_buffer_stats(const void* buf, long long cells, int rows, long long n,
-                                 long long sc, long long sr, long long sw, int B, bool* act,
-                                 int* cnt, bool* md, bool* pair_bad, int device, void* stream) {
-  const Window w{static_cast<const uint8_t*>(buf), cells, n, sc, sr, sw, rows, B};
+                                 long long sc, long long sr, long long sw, int B, int wide,
+                                 bool* act, int* cnt, bool* md, bool* pair_bad, int device,
+                                 void* stream) {
+  const Window w{static_cast<const uint8_t*>(buf), cells, n, sc, sr, sw, rows, B, wide != 0};
   unsigned blocks = 0;
   if (cudaError_t err = prepare(w, device, &blocks)) return err;
   if (cells == 0) return cudaSuccess;
-  buffer_stats_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      w, act, cnt, md, pair_bad);
+  const bool wide_out = n % kRun == 0 && aligned16(act) && aligned16(cnt) && aligned16(md);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (rows <= 4)
+    launch_buffer<4>(w, blocks, s, wide_out, act, cnt, md, pair_bad);
+  else if (rows <= 8)
+    launch_buffer<8>(w, blocks, s, wide_out, act, cnt, md, pair_bad);
+  else if (rows <= 16)
+    launch_buffer<16>(w, blocks, s, wide_out, act, cnt, md, pair_bad);
+  else
+    launch_buffer<32>(w, blocks, s, wide_out, act, cnt, md, pair_bad);
   return cudaGetLastError();
 }

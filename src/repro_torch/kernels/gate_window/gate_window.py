@@ -3,8 +3,10 @@
 Replace ``src/repro/kernels/gate_window/gate_window.py::_stats_kernel`` and
 ``::_buffer_kernel``.  Both read the bool window bytes in place through their
 strides, so a sliced view of the gate's buffer is taken as it is, and write the
-ops contract's dtypes directly: int32 counts and bool flags.  The source's
-header says what bounds them and how they are laid out on the card.
+ops contract's dtypes directly: int32 counts and bool flags, each output its
+own ``torch.empty`` (one allocation carved into the four measured slower on
+the host: ``chip_smoke.py`` [timings]).  The source's header says what bounds
+them and how they are laid out on the card.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import torch
 
 from .. import _build
 
-#: rows of a window the kernels take: one bit each of a 32-bit mask
+#: rows of a window the kernels take: a worker's count and its first and last
+#: straggle row each fit one byte of the kernels' words
 MAX_ROWS = 32
 
 
@@ -24,7 +27,7 @@ MAX_ROWS = 32
 def _fn(name: str):
     fn = getattr(_build.library(), name)
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_longlong] * 4 + \
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -39,13 +42,31 @@ def _check(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} kernel takes at most {MAX_ROWS} rows, got {x.shape[1]}")
 
 
-def _launch(name: str, x: torch.Tensor, B: int, outs) -> None:
+def wide_path(x: torch.Tensor) -> bool:
+    """Whether the kernels read the bool (cells, rows, n) view ``x`` a run of 16
+    workers at a time, one 16-byte load a row: its workers are adjacent and
+    every row starts on 16 bytes.  Otherwise, and for a run that n cuts short,
+    they read it byte by byte.  The gate's contiguous buffers at n = 256, their
+    tails and the windows it concatenates all take the wide path."""
+    return _wide(x.data_ptr(), x.shape, x.stride())
+
+
+def _wide(ptr: int, shape, strides) -> bool:
+    (cells, rows, _), (sc, sr, sw) = shape, strides
+    return (sw == 1 and ptr % 16 == 0 and (sr % 16 == 0 or rows <= 1)
+            and (sc % 16 == 0 or cells <= 1))
+
+
+def _launch(name: str, x: torch.Tensor, B: int, outs) -> bool:
     cells, rows, n = x.shape
+    ptr, strides = x.data_ptr(), x.stride()
+    wide = _wide(ptr, x.shape, strides)
     code = _fn(name)(
-        x.data_ptr(), cells, rows, n, *x.stride(), int(B), *(o.data_ptr() for o in outs),
+        ptr, cells, rows, n, *strides, int(B), wide, *(o.data_ptr() for o in outs),
         x.device.index, _build.stream_handle(x),
     )
     _build.check(code, name)
+    return wide
 
 
 def window_stats(win: torch.Tensor, B: int):
@@ -56,7 +77,7 @@ def window_stats(win: torch.Tensor, B: int):
     outs = [torch.empty(cells, dtype=torch.int32, device=win.device) for _ in range(3)]
     outs.append(torch.empty(cells, dtype=torch.bool, device=win.device))
     if cells:
-        _launch("gate_window_stats", win, B, outs)
+        window_stats.wide_launches += _launch("gate_window_stats", win, B, outs)
         window_stats.launches += 1
     return tuple(outs)
 
@@ -73,10 +94,11 @@ def buffer_stats(buf: torch.Tensor, B: int):
             torch.empty((cells, n), dtype=torch.bool, device=dev),
             torch.empty(cells, dtype=torch.bool, device=dev))
     if cells:
-        _launch("gate_buffer_stats", buf, B, outs)
+        buffer_stats.wide_launches += _launch("gate_buffer_stats", buf, B, outs)
         buffer_stats.launches += 1
     return outs
 
 
-window_stats.launches = 0
-buffer_stats.launches = 0
+# launches, and those of them that took the wide path
+window_stats.launches = window_stats.wide_launches = 0
+buffer_stats.launches = buffer_stats.wide_launches = 0
