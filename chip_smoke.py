@@ -9,8 +9,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       each kernel's ptxas registers, shared memory and spills;
                       fails unless every bf16 attention and ssd_scan kernel's
                       SASS holds HMMA (tensor-core) instructions and none
-                      spills at head dim 64, and unless both gate-window
-                      kernels build unspilled in all four row buckets;
+                      spills at head dim 64, unless both gate-window
+                      kernels build unspilled in all four row buckets, and
+                      unless all 24 RMSNorm backward kernels (four buckets of
+                      warps a row and the chunked path, four dtype pairs)
+                      build unspilled;
   3. rmsnorm       -- the kernel against its plain PyTorch version on the card;
   4. attention     -- the kernel against its plain PyTorch version on the card,
                       f32 (CUDA cores) and bf16 (tensor cores), the bf16 edges
@@ -19,7 +22,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
      attention-bwd    at the training shapes, in f32 and bf16, and attention's
                       bf16 edges; bf16 with q = k = v (a near one-hot softmax)
-                      against autograd of the f32 plain version;
+                      against autograd of the f32 plain version.  The RMSNorm
+                      backward also at d 2048, 4096 and 8192, with gamma in
+                      f32 and bf16; its dgamma (and dx) bit-identical over 10
+                      calls on each path; its barrier counters back at 0; and
+                      exactly one device kernel a call in a profiled run;
   7. ssd_scan      -- both SSD kernel entries (the intra-chunk block, and the
                       fused chunk scan with the inter-chunk term, D skip and
                       cast in its epilogue) against their plain versions, f32
@@ -53,6 +60,7 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       bf16 (2 models, 8 workers, 4 jobs, GE stragglers) for gc
                       and m-sgc: simulated clock, coded-step time, peak memory,
                       exact launches per step, finite losses; a profiled step;
+                      how often the RMSNorm backward's dy came non-contiguous;
                       then one f32 coded gradient at 2 layers (full widths and
                       vocab) against the full-batch gradient and the plain path;
  12. gate_window   -- both gate-window kernels against their plain versions,
@@ -85,7 +93,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       it replaces; both gate-window kernels also at (4096, 3,
                       256), each beside a one-element fill_ (the launch floor)
                       in one profiler session, and the wrappers' four output
-                      allocations against one carved into the four.
+                      allocations against one carved into the four; the
+                      RMSNorm backward at the GC and M-SGC coded steps'
+                      (8192, 896) and (3072, 896), bf16 and f32, with the
+                      same kernel built without its dgamma tail and the same
+                      bytes through torch.add beside it.
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -149,6 +161,8 @@ TRAIN_SCHEMES = {"gc": dict(s=3, prefer_rep=False), "m-sgc": dict(B=1, W=2, lam=
 # GC's coded view of a job: n workers x (s+1) slots x batch/n sequences
 TRAIN_SEQS = TRAIN["n"] * (TRAIN_SCHEMES["gc"]["s"] + 1) * TRAIN["batch"] // TRAIN["n"]
 TRAIN_ROWS = TRAIN_SEQS * TRAIN["seq"]
+# M-SGC's coded view (B 1, W 2, lambda 2): 48 sequences a step
+MSGC_ROWS = 48 * TRAIN["seq"]
 # the simulator: benchmarks/run.py's Table-1 grid (PARAMS, the GE chain calibrated
 # to Fig. 1, 64 traces of 44 rounds at n 256, alpha 8 = the source's slope)
 SIM = dict(n=256, traces=64, rounds=44, alpha=8.0, seed0=60, parity_traces=4)
@@ -273,7 +287,6 @@ def main() -> None:
         from repro_torch.kernels.gc_coding.gc_coding import coded_combine as gc_kernel
         from repro_torch.kernels.rmsnorm import ref as rn_ref
         from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm as rn_kernel
-        from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd as rn_bwd
         from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan as scan_kernel
         from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
     except ImportError as e:
@@ -316,6 +329,12 @@ def main() -> None:
     if len(gate) != 8 or any("0 bytes spill stores, 0 bytes spill loads" not in line
                              for line in gate.values()):
         fail(f"the gate-window kernels spill or lack a row bucket: {gate}")
+    # the RMSNorm backward in every bucket and on both paths, unspilled
+    rn_bwd_built = {label: line for label, line in ptxas.items()
+                    if label.startswith(("rmsnorm_bwd_kernel<", "rmsnorm_bwd_chunked_kernel<"))}
+    if len(rn_bwd_built) != 24 or any("0 bytes spill stores, 0 bytes spill loads" not in line
+                                      for line in rn_bwd_built.values()):
+        fail(f"the RMSNorm backward kernels spill or lack a bucket: {rn_bwd_built}")
     for label in ("attn_fwd_bf16_kernel<64>", "attn_bwd_dq_bf16_kernel<64>",
                   "attn_bwd_dkdv_bf16_kernel<64>",
                   *[label for label in bf16_ssd if ", 64, " in label]):
@@ -406,19 +425,8 @@ def main() -> None:
     torch.cuda.synchronize()
 
     # 6. backward kernels vs the plain versions' autograd, at the training
-    # shapes (the coded GC view: 128 sequences of 64 tokens) and a few others
-    for rows, d in [(TRAIN_ROWS, cfg.d_model), (130, 640), (3, 100)]:
-        for dtype in (torch.float32, torch.bfloat16):
-            x, g, dy = randn(rows, d, dtype=dtype), randn(d, dtype=dtype), randn(rows, d, dtype=dtype)
-            got = rn_bwd(x, g, dy)
-            xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
-            want = torch.autograd.grad(rn_ref.rmsnorm(xr, gr), (xr, gr), dy)
-            tol = RMSNORM_BWD_TOL[_dtype_name(dtype)]
-            err = max(compare("rmsnorm-bwd", f"{name} ({rows}, {d}) {dtype}", a, b, tol)
-                      for name, a, b in zip(("dx", "dgamma"), got, want))
-            if (rows, dtype) == (TRAIN_ROWS, torch.bfloat16):
-                errs["rmsnorm_bwd"] = err
-    torch.cuda.synchronize()
+    # shapes (the coded GC and M-SGC views) and a few others
+    errs["rmsnorm_bwd"] = _rmsnorm_bwd_check(dev, cfg, randn, compare)
     hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     bwd_cases = [  # b, hq, hkv, sq, sk, dh, causal, window, valid_k, dtype
         (TRAIN_SEQS, hq, hkv, TRAIN["seq"], TRAIN["seq"], dh, True, 0, None, torch.float32),
@@ -514,9 +522,10 @@ def main() -> None:
                    f"{_cuda_ms(lambda: rn_kernel(xd, g), 500):.5f} ms")
 
     rows += _attention_timings(cfg, heads_view, ptxas)
-    rows += _training_timings(dev, cfg, randn)
+    rows += _training_timings(dev, cfg, randn, ptxas)
     rows += _gate_window_timings(dev)
     rows += _ssd_timing(dev)
+    _rmsnorm_bwd_turn()
     for r in rows:
         r["launches"] = launches[r["name"]]
         r["max_abs_err"] = errs[r["name"]]
@@ -533,6 +542,74 @@ def main() -> None:
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
+def _rmsnorm_bwd_check(dev, cfg, randn, compare) -> float:
+    """The RMSNorm backward kernel against autograd of the plain version, in f32
+    and bf16 with gamma in f32 and bf16: the coded steps' shapes, every bucket
+    of warps a row (d 896 to 8192), the chunked path (f32 at 8192, a bf16 row of
+    200 bytes); dgamma and dx bit-identical over 10 calls; the barrier counters
+    at 0 after; one device kernel a call.  Returns the error at the GC step's
+    shape in bf16."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import _counter, rmsnorm_bwd
+
+    worst = None
+    for rows, d in [(TRAIN_ROWS, cfg.d_model), (MSGC_ROWS, cfg.d_model), (130, 640), (3, 100),
+                    (2048, 2048), (1024, 4096), (512, 8192)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            for gdtype in (torch.float32, torch.bfloat16):
+                x, dy = randn(rows, d, dtype=dtype), randn(rows, d, dtype=dtype)
+                g = randn(d, dtype=gdtype)
+                got = rmsnorm_bwd(x, g, dy)
+                xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+                want = torch.autograd.grad(rn_ref.rmsnorm(xr, gr), (xr, gr), dy)
+                tol = RMSNORM_BWD_TOL[_dtype_name(dtype if dtype == gdtype else torch.bfloat16)]
+                err = max(compare("rmsnorm-bwd", f"{name} ({rows}, {d}) {_dtype_name(dtype)} gamma "
+                                  f"{_dtype_name(gdtype)}", a, b, tol)
+                          for name, a, b in zip(("dx", "dgamma"), got, want))
+                if (rows, dtype, gdtype) == (TRAIN_ROWS, torch.bfloat16, torch.bfloat16):
+                    worst = err
+    for rows, d, dtype in [(TRAIN_ROWS, cfg.d_model, torch.bfloat16),
+                           (TRAIN_ROWS, cfg.d_model, torch.float32), (77, 8192, torch.float32),
+                           (300, 100, torch.bfloat16)]:
+        x, g, dy = randn(rows, d, dtype=dtype), randn(d, dtype=dtype), randn(rows, d, dtype=dtype)
+        first = rmsnorm_bwd(x, g, dy)
+        for _ in range(10):
+            again = rmsnorm_bwd(x, g, dy)
+            if not (torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])):
+                fail(f"rmsnorm-bwd ({rows}, {d}) {dtype}: dx or dgamma changed between calls")
+    say("rmsnorm-bwd", "dx and dgamma bit-identical over 10 calls at (8192, 896) bf16 and f32, "
+                       "(77, 8192) f32 and (300, 100) bf16 (the chunked path)")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    torch.cuda.synchronize()
+    if _counter(dev, stream).tolist() != [0, 0]:
+        fail(f"rmsnorm-bwd: the barrier counters are {_counter(dev, stream).tolist()} after "
+             f"the calls, not 0")
+    # device kernels a call: every activity of a profiled run of 20 calls must be
+    # the kernel, and all 20 recorded (the profiler can lose activities: three tries)
+    x, g, dy = (randn(TRAIN_ROWS, cfg.d_model, dtype=torch.bfloat16),
+                randn(cfg.d_model, dtype=torch.bfloat16),
+                randn(TRAIN_ROWS, cfg.d_model, dtype=torch.bfloat16))
+    calls, seen = 20, []
+    for _ in range(3):
+        names = [name for name, _ in
+                 _device_events(lambda: [rmsnorm_bwd(x, g, dy) for _ in range(calls)])]
+        kernels = sum("rmsnorm_bwd" in name for name in names)
+        seen.append(kernels)
+        if kernels > calls or kernels < len(names):
+            fail(f"rmsnorm-bwd: {calls} calls ran {len(names)} device activities "
+                 f"{sorted(set(kernel_label(n) for n in names))}, not one kernel a call")
+        if kernels == calls:
+            break
+    else:
+        fail(f"rmsnorm-bwd: the profiler recorded {seen} kernels for {calls} calls")
+    say("rmsnorm-bwd", f"one device kernel a call ({calls} in {calls} calls, "
+                       f"{kernel_label(names[0])}); counters at 0")
+    torch.cuda.synchronize()
+    return worst
 
 
 def _dtype_name(dtype) -> str:
@@ -585,6 +662,7 @@ def _train_full(dev, cfg) -> dict:
         flash_attention_bwd,
     )
     from repro_torch.kernels.gc_coding.gc_coding import coded_combine
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm, rmsnorm_bwd
     from repro_torch.train import VectorizedCodedTrainer
 
@@ -614,11 +692,25 @@ def _train_full(dev, cfg) -> dict:
             return out
 
         tr._step = timed
+        # how often the RMSNorm backward's dy arrives non-contiguous (ops.py then
+        # copies it before the kernel)
+        dys = {"calls": 0, "strided": 0}
+        backward = rn_ops._RMSNormFn.backward
+
+        def counted(ctx, dy, backward=backward, dys=dys):
+            dys["calls"] += 1
+            dys["strided"] += not dy.is_contiguous()
+            return backward(ctx, dy)
+
+        rn_ops._RMSNormFn.backward = staticmethod(counted)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
-        clock = tr.run(TRAIN["jobs"], delays)
+        try:
+            clock = tr.run(TRAIN["jobs"], delays)
+        finally:
+            rn_ops._RMSNormFn.backward = staticmethod(backward)
         launches = {k: c.launches for k, c in counters.items()}
         peak = torch.cuda.max_memory_allocated()
         steps = len(times)
@@ -633,7 +725,9 @@ def _train_full(dev, cfg) -> dict:
                           f"(all: {[round(t * 1e3, 3) for t in times]} ms); "
                           f"max_memory_allocated {peak} B; losses {[round(x, 4) for x in losses]}")
         say("train-full", f"{name}: launches per step "
-                          f"{ {k: v / steps for k, v in launches.items()} } (expected {per_step})")
+                          f"{ {k: v / steps for k, v in launches.items()} } (expected {per_step}); "
+                          f"the RMSNorm backward's dy non-contiguous in {dys['strided']} of "
+                          f"{dys['calls']} calls")
         if any(launches[k] != per_step[k] * steps for k in per_step):
             fail(f"train-full {name}: launches {launches} over {steps} steps, expected "
                  f"{per_step} per step")
@@ -770,7 +864,7 @@ def _attention_timings(cfg, heads_view, ptxas) -> list:
     return rows
 
 
-def _training_timings(dev, cfg, randn) -> list:
+def _training_timings(dev, cfg, randn, ptxas) -> list:
     """Timing rows of the training path's other kernels, at its shapes."""
     import torch
     import torch.nn.functional as F
@@ -778,8 +872,6 @@ def _training_timings(dev, cfg, randn) -> list:
     from repro_torch.kernels.gc_coding import coded_combine_tree
     from repro_torch.kernels.gc_coding import ref as gc_ref
     from repro_torch.kernels.gc_coding.gc_coding import coded_combine
-    from repro_torch.kernels.rmsnorm import ref as rn_ref
-    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd
     from repro_torch.train.driver import _tree_weighted_sum
 
     rows = []
@@ -819,22 +911,119 @@ def _training_timings(dev, cfg, randn) -> list:
                    f"{_cuda_ms(lambda: coded_combine_tree(stacked, ws), 500):.5f} ms per call")
     torch.cuda.empty_cache()
 
-    x = randn(TRAIN_ROWS, cfg.d_model, dtype=torch.bfloat16)
-    g = randn(cfg.d_model, dtype=torch.bfloat16)
-    dy = randn(TRAIN_ROWS, cfg.d_model, dtype=torch.bfloat16)
-    xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
-    y_plain = rn_ref.rmsnorm(xr, gr)
-    y_lib = F.rms_norm(xr, (cfg.d_model,), weight=gr, eps=1e-6)
-    rows.append(_timed(
-        "rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
-        "src/repro/kernels/rmsnorm/rmsnorm.py:22", tuple(x.shape),
-        lambda: rmsnorm_bwd(x, g, dy),
-        lambda: torch.autograd.grad(y_plain, (xr, gr), dy, retain_graph=True),
-        lambda: torch.autograd.grad(y_lib, (xr, gr), dy, retain_graph=True),
-        3 * x.numel() * x.element_size() + 2 * g.numel() * g.element_size(),
-        10 * x.numel(), "f32", iters=200,
-    ))
+    rows += _rmsnorm_bwd_timings(dev, cfg, randn, ptxas)
     return rows
+
+
+def _rmsnorm_bwd_timings(dev, cfg, randn, ptxas) -> list:
+    """The RMSNorm backward at the GC and M-SGC coded steps' (8192, 896) and
+    (3072, 896), bf16 and f32 (gamma in x's dtype): the kernel, its plain
+    version, autograd of ``F.rms_norm`` and the bound, and beside them the same
+    kernel built with -DRMSNORM_BWD_TAIL=0 (no barrier, no dgamma sums: the tail
+    is the difference) and ``torch.add`` over the same bytes (reads two
+    (rows, d) tensors, writes one).  Returns the JSON row: (8192, 896) bf16."""
+    import ctypes
+    import subprocess
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import ref as rn_ref
+    from repro_torch.kernels.rmsnorm.rmsnorm import _bwd_fn, _plan, rmsnorm_bwd
+
+    lib = _build.BUILD_ROOT / "variants" / f"rmsnorm_bwd_notail_{_build._digest()}.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DRMSNORM_BWD_TAIL=0", "-shared", "-I",
+                    str(_build.CSRC), str(_build.CSRC / "rmsnorm_bwd.cu"), "-o", str(lib)],
+                   check=True, capture_output=True, timeout=600)
+    notail = ctypes.CDLL(str(lib)).rmsnorm_bwd
+    notail.argtypes, notail.restype = _bwd_fn().argtypes, ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    zeros = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def without_tail(x, g, dy):
+        rows, d = x.shape
+        dx, dg = torch.empty_like(x), torch.empty_like(g)
+        plan = _plan(rows, d, 16 // x.element_size(), sms)
+        part = torch.empty((plan.slabs, d), dtype=torch.float32, device=dev)
+        code = notail(x.data_ptr(), g.data_ptr(), dy.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+                      part.data_ptr(), zeros.data_ptr(), rows, d, plan.slabs, plan.rows_per_slab,
+                      plan.bucket, True, 1e-6, _build.DTYPE_CODES[x.dtype],
+                      _build.DTYPE_CODES[g.dtype], dev.index,
+                      ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _build.check(code, "rmsnorm_bwd without its tail")
+
+    out = []
+    for rows in (TRAIN_ROWS, MSGC_ROWS):
+        for dtype in (torch.bfloat16, torch.float32):
+            d = cfg.d_model
+            x, dy = randn(rows, d, dtype=dtype), randn(rows, d, dtype=dtype)
+            g = randn(d, dtype=dtype)
+            xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+            y_plain = rn_ref.rmsnorm(xr, gr)
+            y_lib = F.rms_norm(xr, (d,), weight=gr, eps=1e-6)
+            row = _timed(
+                "rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                "src/repro/kernels/rmsnorm/rmsnorm.py:22", tuple(x.shape),
+                lambda: rmsnorm_bwd(x, g, dy),
+                lambda: torch.autograd.grad(y_plain, (xr, gr), dy, retain_graph=True),
+                lambda: torch.autograd.grad(y_lib, (xr, gr), dy, retain_graph=True),
+                3 * x.numel() * x.element_size() + 2 * g.numel() * g.element_size(),
+                10 * x.numel(), "f32", iters=200,
+            )
+            plan = _plan(rows, d, 16 // x.element_size(), sms)
+            pair = "__nv_bfloat16, S1_" if dtype == torch.bfloat16 else "float, float"
+            label = f"rmsnorm_bwd_kernel<{pair}, {plan.bucket}>"
+            no_tail = _device_ms(lambda: without_tail(x, g, dy), 200)
+            sum_out = torch.empty_like(x)
+            add = _device_ms(lambda: torch.add(x, dy, out=sum_out), 200)
+            ms, bound = row["ms"], row["bound_ms"]
+            say("timings", f"rmsnorm_bwd ({rows}, {d}) {_dtype_name(dtype)}: kernel {ms:.5f} ms "
+                           f"({bound / ms:.3f} of the {bound:.5f} ms bound); library "
+                           f"{row['library_ms']:.5f} ms (kernel / library "
+                           f"{ms / row['library_ms']:.3f}); plain {row['plain_ms']:.5f} ms; "
+                           f"call_ms {row['call_ms']:.5f}; built without its tail {no_tail:.5f} ms "
+                           f"(tail {ms - no_tail:.5f} ms); torch.add over the same bytes "
+                           f"{add:.5f} ms; {plan}; ptxas {label}: "
+                           f"{ptxas.get(label, 'not in the build log')}")
+            if (rows, dtype) == (TRAIN_ROWS, torch.bfloat16):
+                out.append(row)
+            del x, dy, xr, y_plain, y_lib, sum_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rmsnorm_bwd_turn(src: str = str(ROOT / "src")) -> None:
+    """One turn of comparing two trees' RMSNorm backward in one call: with the
+    tree's ``src`` first on sys.path, the device time of ``rmsnorm_bwd`` a call
+    and of each kernel it launches, at the coded steps' shapes in bf16 and f32
+    (profiler, 200 calls after 20, L2-warm).  Run as
+    ``python3 -c "import chip_smoke as c; c._rmsnorm_bwd_turn('build/parent/src')"``."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    say("turn", f"{repro_torch.__file__}; {nvidia_smi()}")
+    for rows in (TRAIN_ROWS, MSGC_ROWS):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy = (torch.randn((rows, 896), generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+            g = torch.randn(896, generator=gen, device=dev).to(dtype)
+            for _ in range(20):
+                rmsnorm_bwd(x, g, dy)
+            calls = 200
+            per: dict[str, list] = {}
+            for name, us in _device_events(lambda: [rmsnorm_bwd(x, g, dy) for _ in range(calls)]):
+                per.setdefault(kernel_label(name), []).append(us)
+            total = sum(sum(v) for v in per.values()) / calls
+            launches = "; ".join(f"{k}: {len(v)} recorded, mean {statistics.mean(v):.3f} us, "
+                                 f"median {statistics.median(v):.3f}" for k, v in per.items())
+            say("turn", f"({rows}, 896) {_dtype_name(dtype)}: {total:.3f} us a call; {launches}")
 
 
 def _sim_parity(ref, got, exact: bool) -> bool:
