@@ -71,6 +71,7 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       own tails and concatenated windows at (64, rows, 256)
                       take the wide path (16-byte loads);
  13. sim           -- ``simulate_batch`` on the Table-1 grid (n 256, 4 schemes,
+                      and the clustered baselines dc-gc and sb-gc at C 4, s 32;
                       64 Gilbert-Elliott traces of 44 rounds) in both wait-outs,
                       on the card and on the CPU: equal under the simulator's
                       device contract, and equal to the descriptor ``simulate``
@@ -82,7 +83,23 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       at n 256 (30-round probe) equals ``select_parameters_legacy``;
  15. adaptive      -- ``run_adaptive`` at Fig. 18's configuration (n 64, 60 jobs,
                       a 20-round uncoded probe, 4 models) beats never switching;
- 16. timings       -- each kernel, its plain version and the nearest PyTorch
+ 16. scenarios     -- ``launch.scenarios.scenario_sweep`` (Sec. 6) at n 256 over
+                      ``trace_library(256, 40, 16)``'s seven scenarios with
+                      ``scheme_grid(256)``'s 7 schemes, on the card and on the
+                      CPU: every cell equal under the device contract, the
+                      equal-load and dominance gates, gate-window launches =
+                      the CPU's plain calls, all wide; wall per scenario and
+                      each scheme's mean per-job time;
+ 17. multimodel    -- ``multimodel_training`` (examples/multimodel_training.py)
+                      at 64 workers, 4 models, batch 256, 16 jobs, 7 schemes:
+                      every decoded gradient against the full-batch one, and
+                      one ``coded_combine`` launch per encode and decode;
+ 18. coded-train   -- ``coded_train`` (benchmarks/run.py coded-train) at full
+                      qwen2-0.5b width in bf16: 7 schemes x {ge-bursty,
+                      replayed-waves}, 2 models, n 8, batch 32 x 64 tokens, 8
+                      jobs; simulated clocks, step ms, peak memory, exact
+                      launches per step, its three gates; a profiled dc-gc step;
+ 19. timings       -- each kernel, its plain version and the nearest PyTorch
                       library call at the main path's shapes: device time from
                       the profiler (CUDA events per call beside it), the least
                       time the card could take (published H100 peaks), achieved
@@ -168,13 +185,22 @@ MSGC_ROWS = 48 * TRAIN["seq"]
 SIM = dict(n=256, traces=64, rounds=44, alpha=8.0, seed0=60, parity_traces=4)
 SIM_GE = dict(p_ns=0.035, p_sn=0.85, slow_factor=6.0, jitter=0.05)
 SIM_PARAMS = {"m-sgc": dict(B=2, W=3, lam=27), "sr-sgc": dict(B=2, W=3, lam=23),
-              "gc": dict(s=15), "uncoded": {}}
+              "gc": dict(s=15), "uncoded": {},
+              # the clustered baselines at scheme_grid(256)'s operating point
+              "dc-gc": dict(C=4, s=32), "sb-gc": dict(C=4, s=32)}
 # App.-J selection: benchmarks/run.py's small grids on a 30-round probe
 SELECT_GRIDS = {
     "m-sgc": [{"B": B, "W": W, "lam": lam} for B, W in ((1, 2), (2, 3))
               for lam in (8, 16, 24, 27, 32)],
     "gc": [{"s": s} for s in (4, 8, 12, 15, 20, 24)],
 }
+# Sec. 6: the scenario sweep at the paper's cluster size over the trace library,
+# with scheme_grid(256)'s 7 schemes as the specs (benchmarks/run.py scenario-sweep)
+SCENARIOS = dict(n=256, rounds=40, traces=16, seed=0)
+# the multi-model experiment of examples/multimodel_training.py over 16 jobs
+MULTIMODEL = dict(jobs=16, workers=64, models=4)
+# bench_coded_train at full qwen2-0.5b width, [train-full]'s shapes
+CODED_TRAIN = dict(n=8, models=2, jobs=8, seq=64)
 # Fig. 18: run_adaptive's switch from uncoded to m-sgc (benchmarks/run.py)
 ADAPTIVE = dict(n=64, J=60, t_probe=20, models=4, seed=11,
                 grid=[{"B": B, "W": B + 1, "lam": lam} for B in (1, 2) for lam in (8, 16, 24)])
@@ -503,7 +529,13 @@ def main() -> None:
     _select(dev)
     _adaptive(dev)
 
-    # 16. timings at the main paths' shapes (bf16, as served and trained)
+    # 16-18. the Sec.-6 comparison: the scenario sweep over the trace library,
+    # the 7-scheme multi-model training and the 7-scheme coded training
+    _scenarios(dev)
+    _multimodel(dev)
+    _coded_train(dev, cfg)
+
+    # 19. timings at the main paths' shapes (bf16, as served and trained)
     rows = []
     x = randn(BATCH * PROMPT_LEN, cfg.d_model, dtype=torch.bfloat16)
     g = randn(cfg.d_model, dtype=torch.bfloat16)
@@ -1283,6 +1315,212 @@ def _adaptive(dev) -> None:
         fail(f"adaptive: switching ({total:.6f} s) does not beat never switching ({never:.6f} s)")
     if not np.isfinite(final).all() or not all(launched):
         fail(f"adaptive: losses {final}, launches {launched}")
+
+
+def _scenarios(dev) -> None:
+    """``scenario_sweep`` over ``trace_library(256, 40, 16)`` with
+    ``scheme_grid(256)``'s specs on the card and on the CPU: every cell equal
+    under the simulator's device contract, the dominance and equal-load gates,
+    and the gate-window launches equal to the CPU run's plain calls, all wide."""
+    import numpy as np
+
+    from repro_torch.kernels.gate_window import gate_window as gwk
+    from repro_torch.kernels.gate_window import ref as gwr
+    from repro_torch.launch.scenarios import scenario_sweep, scheme_grid
+
+    sc = SCENARIOS
+    specs = scheme_grid(sc["n"])
+    args = (sc["n"], sc["rounds"], sc["traces"], specs)
+    for k in (gwk.window_stats, gwk.buffer_stats):
+        k.launches = k.wide_launches = 0
+    try:
+        t0 = time.perf_counter()
+        got = scenario_sweep(*args, seed=sc["seed"], device=dev, quiet=True)
+        wall = time.perf_counter() - t0
+        launched = (gwk.window_stats.launches, gwk.buffer_stats.launches)
+        wide = (gwk.window_stats.wide_launches, gwk.buffer_stats.wide_launches)
+        gwr.window_stats.calls = gwr.buffer_stats.calls = 0
+        t0 = time.perf_counter()
+        want = scenario_sweep(*args, seed=sc["seed"], device="cpu", quiet=True)
+        cpu_wall = time.perf_counter() - t0
+    except AssertionError as err:
+        fail(f"scenarios: a gate of the sweep failed: {err}")
+    plain = (gwr.window_stats.calls, gwr.buffer_stats.calls)
+    # the selective gate checks its members through buffer_stats alone
+    if launched != plain or wide != launched or not launched[1]:
+        fail(f"scenarios: gate-window launches {launched} (wide {wide}) on the card, plain "
+             f"calls {plain} on the CPU")
+    cells = exact = 0
+    for name, grid in got.grids.items():
+        for w, g in zip(want.grids[name].ravel(), grid.ravel()):
+            if not _sim_parity(w, g, exact=False):
+                fail(f"scenarios {name} {g.scheme}: a cell differs between the card and the CPU")
+            exact += _sim_parity(w, g, exact=True)
+            cells += 1
+    labels = [label for label, _, _ in specs]
+    gc_s = {label: params for label, _, params in specs}["gc"]["s"]
+    for name in got.grids:
+        means = {label: got.means[(name, label)] for label in labels}
+        say("scenarios", f"{name}: {got.walls[name] * 1e3:.3f} ms on the card "
+                         f"({want.walls[name] * 1e3:.3f} ms on the CPU); mean per-job s "
+                         f"{ {k: round(v, 6) for k, v in means.items()} }; fastest "
+                         f"{min(means, key=means.get)}")
+        for lb in ("dc-gc", "sb-gc"):
+            if not means[lb] <= means["gc"] + 1e-9:
+                fail(f"scenarios {name}: {lb} {means[lb]} slower than gc {means['gc']}")
+    loads = {label: got.grids[next(iter(got.grids))][i, 0, 0].normalized_load
+             for i, label in enumerate(labels)}
+    say("scenarios", f"n {sc['n']}, {len(got.grids)} scenarios x {len(specs)} schemes x "
+                     f"{sc['traces']} traces of {sc['rounds']} rounds: {wall:.3f} s on the card, "
+                     f"{cpu_wall:.3f} s on the CPU; {cells} cells agree (exact on {exact}); "
+                     f"equal load {(gc_s + 1) / sc['n']:.6f} for {got.eq_load}; "
+                     f"loads {loads}; dc-gc and sb-gc never slower than gc; launches "
+                     f"window_stats {launched[0]}, buffer_stats {launched[1]} (= plain calls on "
+                     f"the CPU, all on the wide path)")
+    if not np.isfinite(list(got.means.values())).all():
+        fail("scenarios: non-finite per-job times")
+
+
+def _multimodel(dev) -> None:
+    """``multimodel_training`` at the example's 64 workers and 4 models over 16
+    jobs: every decoded gradient of the 7 schemes within DECODE_TOL of the
+    full-batch one, and one ``coded_combine`` launch per encode and decode."""
+    import numpy as np
+
+    from repro_torch.kernels.gc_coding.gc_coding import coded_combine
+    from repro_torch.launch.scenarios import multimodel_training
+
+    m = MULTIMODEL
+    coded_combine.launches = 0
+    t0 = time.perf_counter()
+    runs = multimodel_training(m["jobs"], m["workers"], m["models"], check_decodes=True,
+                               device=dev, quiet=True)
+    wall = time.perf_counter() - t0
+    launched = coded_combine.launches
+    combines = sum(r.driver.encodes + r.driver.decodes for r in runs.values())
+    for label, r in runs.items():
+        drv = r.driver
+        say("multimodel", f"{label}: load {r.load:.6f}, T {r.T}, simulated clock "
+                          f"{r.clock:.6f} s; {drv.encodes} encodes + {drv.decodes} decodes; "
+                          f"decoded vs full-batch gradient max_abs_err {r.max_decode_err:.3e} "
+                          f"(tol {DECODE_TOL:g}); final losses "
+                          f"{[round(x, 4) for x in r.final_losses]}")
+        if not r.max_decode_err <= DECODE_TOL:
+            fail(f"multimodel {label}: a decoded gradient is off by {r.max_decode_err:.3e}")
+        if not np.isfinite(r.final_losses).all():
+            fail(f"multimodel {label}: non-finite losses {r.final_losses}")
+    gain = 1 - runs["m-sgc"].clock / runs["gc"].clock
+    say("multimodel", f"{m['workers']} workers, {m['models']} models, batch 256, "
+                      f"{m['jobs']} jobs, 7 schemes in {wall:.3f} s; coded_combine launches "
+                      f"{launched} = {combines} encodes + decodes; M-SGC vs GC simulated-clock "
+                      f"gain {gain:.4f}")
+    if launched != combines or not launched:
+        fail(f"multimodel: {launched} coded_combine launches for {combines} encodes + decodes")
+
+
+def _coded_train(dev, cfg) -> None:
+    """``coded_train`` (bench_coded_train) at full qwen2-0.5b width in bf16:
+    the 7 schemes through VectorizedCodedTrainer on ge-bursty and
+    replayed-waves, its three gates, exact launches per step, peak memory, and
+    a profiled dc-gc step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_scheme, trace_library
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.launch.scenarios import CODED_BATCH, coded_train, scheme_grid
+    from repro_torch.train import VectorizedCodedTrainer
+
+    c = CODED_TRAIN
+    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+                "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd}
+    L = cfg.num_layers
+    per_step = {"flash_attention": L, "flash_attention_bwd": L, "rmsnorm": 2 * L + 1,
+                "rmsnorm_bwd": 2 * L + 1}
+    profiled = {}
+
+    def device_ms(fn, reps):
+        # the isolated step's device time: the eager step's wall is set by the
+        # host's ~7,000 launches a step, which the bench's jitted step never
+        # pays; its launches stay out of the counts the path is held to.  One
+        # profiled call after the warm-ups: a step's device time is steady
+        # from call to call, and each call is ~6,900 activities to trace
+        before = {k: v.launches for k, v in counters.items()}
+        got = _profiled(fn, 1)
+        for k, v in counters.items():
+            v.launches = before[k]
+        if got["ms"] is None:
+            fail("coded-train: the profiler recorded no device time for an isolated step")
+        profiled[len(profiled)] = got
+        return got["ms"]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    try:
+        res = coded_train(c["n"], c["models"], c["jobs"], cfg=cfg, seq_len=c["seq"], lr=1e-4,
+                          step_timer=device_ms, device=dev, quiet=True)
+    except AssertionError as err:
+        fail(f"coded-train: a gate failed: {err}")
+    wall = time.perf_counter() - t0
+    launched = {k: v.launches for k, v in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for (trace, label), clock in res.sim_clock.items():
+        say("coded-train", f"{trace} {label}: load {res.loads[label]:.4f}, simulated clock "
+                           f"{clock:.6f} s, coded step {res.step_ms[(trace, label)]:.3f} ms "
+                           f"median after a warm-up, final loss "
+                           f"{res.final_loss[(trace, label)]:.4f}")
+    say("coded-train", f"qwen2-0.5b bf16, {c['models']} models, n {c['n']}, batch "
+                       f"{CODED_BATCH} x {c['seq']} tokens, {c['jobs']} jobs, trace_library(n="
+                       f"{c['n']}, rounds={c['jobs'] + 8}): {res.steps} coded steps in "
+                       f"{wall:.3f} s; "
+                       f"max_memory_allocated {peak} B; launches per step "
+                       f"{ {k: v / res.steps for k, v in launched.items()} } (expected "
+                       f"{per_step})")
+    wall_ratio = res.step_ms[("ge-bursty", "m-sgc")] / res.step_ms[("ge-bursty", "gc")]
+    say("coded-train", f"isolated coded step, device ms from the profiler (job 1, unit "
+                       f"weights, one call after 10): "
+                       f"{ {k: round(v, 3) for k, v in res.isolated_ms.items()} }; M-SGC/GC "
+                       f"{res.ratio:.4f} (the gate); on the host clock in the ge-bursty runs "
+                       f"{wall_ratio:.4f}; activities recorded "
+                       f"{[(p['recorded'], p['expected']) for p in profiled.values()]}")
+    if any(launched[k] != per_step[k] * res.steps for k in per_step):
+        fail(f"coded-train: launches {launched} over {res.steps} steps, expected {per_step} "
+             "per step")
+    if not (res.sim_clock[("ge-bursty", "m-sgc")] < res.sim_clock[("ge-bursty", "gc")]
+            and res.ratio < 1.0 and np.isfinite(list(res.final_loss.values())).all()
+            and res.steps == 7 * 2 * c["jobs"]):
+        fail(f"coded-train: gates or steps do not hold ({res.steps} steps, ratio {res.ratio})")
+    # one dc-gc step profiled: the coded view of a re-clustered GC round
+    (label, name, kw), = [s for s in scheme_grid(c["n"]) if s[0] == "dc-gc"]
+    sc = trace_library(n=c["n"], rounds=c["jobs"] + 8, num_traces=1, seed=0)[0]
+    tr = VectorizedCodedTrainer(scheme=make_scheme(name, c["n"], 4, **kw), cfg=cfg,
+                                num_models=c["models"], batch_size=CODED_BATCH,
+                                seq_len=c["seq"], lr=1e-4, seed=0, device=dev)
+    step, times, last = tr._step, [], {}
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        last["args"] = args
+        return out
+
+    tr._step = timed
+    tr.run(4, sc.delays[0])
+    _breakdown("profile coded-train dc-gc step", _device_events(lambda: step(*last["args"])),
+               statistics.median(times[1:]) * 1e3)
+    del tr, last
+    torch.cuda.empty_cache()
 
 
 def _gate_window_timings(dev) -> list:

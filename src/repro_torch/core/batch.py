@@ -405,8 +405,7 @@ def simulate_batch(
         elif dev.type != "cpu":
             raise NotImplementedError(
                 f"{e.name}: a scheme without a lockstep kernel runs on the host only "
-                "(device='cpu'); the clustered baselines' kernels wait for their slice of "
-                "the port (ROADMAP.md, slice queue)")
+                "(device='cpu'); register one with core.kernel.register_kernel")
         else:
             row = []
             for ti in range(num_traces):

@@ -1,9 +1,9 @@
 """Gradient Coding (Tandon et al., 2017) primitives.
 
 Copy of ``src/repro/core/gc.py`` (numpy only): ``cyclic_support``,
-``DecodingError``, ``GradientCode``, ``RepGradientCode`` and
-``make_gradient_code``.  The cluster-structured code of the dc-gc / sb-gc
-baselines is not ported yet (ROADMAP.md).
+``DecodingError``, ``GradientCode``, ``RepGradientCode``,
+``ClusterGradientCode`` (the code of the dc-gc / sb-gc baselines) and
+``make_gradient_code``.
 
 * ``GradientCode`` — an (n, s) code with cyclic support: worker-i holds
   data chunks ``[i : i+s]* (mod n)`` and returns one linear combination
@@ -28,6 +28,7 @@ __all__ = [
     "cyclic_support",
     "GradientCode",
     "RepGradientCode",
+    "ClusterGradientCode",
     "make_gradient_code",
 ]
 
@@ -247,6 +248,96 @@ class RepGradientCode:
             survivors.shape[:-1] + (self.num_groups, self.s + 1)
         )
         return shaped.any(axis=-1).all(axis=-1)
+
+    @property
+    def normalized_load(self) -> float:
+        return (self.s + 1) / self.n
+
+
+class ClusterGradientCode:
+    """Cluster-structured gradient code (the dc-gc / sb-gc baselines).
+
+    Workers are partitioned into equal clusters by ``cid`` (int[n],
+    values in [0, C)); each cluster of size ``g = n/C`` owns the data
+    chunks of its own members and is protected by a within-cluster
+    (g, s) code — fractional repetition (App.-G GC-Rep) when
+    ``(s+1) | g``, the general Tandon construction otherwise.  All
+    clusters share ONE inner (g, g) matrix; the global ``encode_matrix``
+    embeds it at each cluster's member/chunk block, so worker-i's row is
+    supported on ``s+1`` chunks of its own cluster and the per-worker
+    load is ``(s+1)/n`` exactly like an (n, s)-GC.
+
+    Decoding is per cluster: the decode vector is solved from the
+    round-t survivors *within* each cluster (``a^T B_c[surv] = 1^T``),
+    and the global beta is the concatenation — job-t decodes iff every
+    cluster can, which the per-cluster ``DecodingError`` reports with
+    the cluster's survivor count.
+    """
+
+    def __init__(self, cid, s: int, *, prefer_rep: bool = True,
+                 seed: int = 0):
+        cid = np.asarray(cid, dtype=np.int64)
+        n = cid.size
+        C = int(cid.max()) + 1 if n else 0
+        members = [np.flatnonzero(cid == c) for c in range(C)]
+        sizes = {m.size for m in members}
+        if len(sizes) != 1:
+            raise ValueError(f"clusters must be equal-sized, got {sizes}")
+        g = sizes.pop()
+        if not 0 <= s < g:
+            raise ValueError(f"need 0 <= s < cluster size {g}, got s={s}")
+        self.n, self.s, self.C = n, s, C
+        self.cid = cid
+        self.members = members
+        #: local rank of worker i within its cluster (members are in
+        #: worker order, so rank = position in the sorted member list)
+        self.local_rank = np.empty(n, dtype=np.int64)
+        for m in members:
+            self.local_rank[m] = np.arange(g)
+        self.inner = make_gradient_code(g, s, prefer_rep=prefer_rep,
+                                        seed=seed)
+        self._matrix: np.ndarray | None = None
+
+    @property
+    def encode_matrix(self) -> np.ndarray:
+        """(n, n) float64, the inner matrix embedded per cluster: row i
+        is supported on the chunks of worker-i's cluster members."""
+        if self._matrix is None:
+            B = np.zeros((self.n, self.n), dtype=np.float64)
+            inner = self.inner.encode_matrix
+            for m in self.members:
+                B[np.ix_(m, m)] = inner
+            self._matrix = B
+        return self._matrix
+
+    def chunks_of_worker(self, i: int) -> np.ndarray:
+        """Global chunk ids (s+1 of them) worker-i computes: the inner
+        cyclic support mapped through its cluster's member list."""
+        m = self.members[self.cid[i]]
+        return m[self.inner.chunks_of_worker(int(self.local_rank[i]))]
+
+    def decode_vector(self, survivors) -> np.ndarray:
+        """Length-n beta with ``g = sum_i beta_i l_i``, solved cluster
+        by cluster from the survivors inside each; raises
+        ``DecodingError`` naming the failing cluster's survivor count."""
+        surv = np.zeros(self.n, dtype=bool)
+        surv[np.asarray(sorted(survivors), dtype=np.int64)] = True
+        beta = np.zeros(self.n, dtype=np.float64)
+        for c, m in enumerate(self.members):
+            local = np.flatnonzero(surv[m])
+            try:
+                beta[m] = self.inner.decode_vector(local)
+            except DecodingError as err:
+                raise DecodingError(
+                    f"cluster {c}: {local.size} of {m.size} survivors "
+                    f"cannot decode (s={self.s}): {err}"
+                ) from err
+        return beta
+
+    def can_decode_mask(self, survivors: np.ndarray) -> bool:
+        return all(
+            self.inner.can_decode_mask(survivors[m]) for m in self.members
+        )
 
     @property
     def normalized_load(self) -> float:

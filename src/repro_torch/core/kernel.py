@@ -29,9 +29,11 @@ the JAX package's branch-free greedy form (``_admit_partial_traced``), with a
 Python loop for ``lax.while_loop``: one host check per round and one per
 greedy iteration, the same code on the CPU and on the card.
 
-The clustered baselines' kernels (``DCGCKernel``, ``SBGCKernel``) come with
-their schemes in a later slice (ROADMAP.md); ``make_kernel`` raises
-``KeyError`` for them, as for any unregistered scheme.
+The clustered baselines' kernels, ``DCGCKernel`` and ``SBGCKernel``, check
+decodability per cluster with the same cluster helpers as their design
+models (``straggler._round_robin_clusters``, ``_cluster_counts_ok``).  The
+JAX package's grid-fusion hooks (``fused_params``/``bind_fused``) are left
+out with the grid fusion they serve (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -43,7 +45,13 @@ import torch
 
 from repro_torch.devices import resolve_device
 
-from .straggler import MixtureModel, StragglerModel, WindowwiseOr
+from .straggler import (
+    MixtureModel,
+    StragglerModel,
+    WindowwiseOr,
+    _cluster_counts_ok,
+    _round_robin_clusters,
+)
 
 __all__ = [
     "SchemeState",
@@ -51,6 +59,8 @@ __all__ = [
     "GCKernel",
     "SRSGCKernel",
     "MSGCKernel",
+    "DCGCKernel",
+    "SBGCKernel",
     "UncodedKernel",
     "GateState",
     "GateKernel",
@@ -114,6 +124,20 @@ class MSGCState(SchemeState):
 
     pend: torch.Tensor       # (cells, slots, n, W-1) bool failed-D1 queue
     d2: torch.Tensor | None  # (cells, slots, B, n) bool; None when lam == n
+
+
+@dataclass
+class DCGCState(SchemeState):
+    """Dynamic-clustering GC: the only cross-round state is the
+    previous round's admitted straggler row, which fixes the next
+    round's cluster assignment."""
+
+    prev: torch.Tensor  # (cells, n) bool
+
+
+@dataclass
+class SBGCState(SchemeState):
+    pass
 
 
 @dataclass
@@ -352,6 +376,58 @@ class MSGCKernel(SchemeKernel):
         return state
 
 
+class DCGCKernel(SchemeKernel):
+    """Dynamic-clustering GC (scenario-sweep baseline): per-round
+    decode like GC (T = 0), but decodability is per-CLUSTER — every
+    cluster re-formed from the previous round's admitted straggler row
+    must keep <= s stragglers.  The assignment is the same cumsum-based
+    round-robin deal the design model uses
+    (``straggler._round_robin_clusters``); ``prev`` rides in the state."""
+
+    name = "dc-gc"
+
+    def __init__(self, scheme, device="cuda"):
+        super().__init__(scheme, device)
+        self.C, self.s = scheme.C, scheme.s
+
+    def init_state(self, cells: int) -> DCGCState:
+        return DCGCState(prev=self._zeros(cells, self.n), **self._base_arrays(cells))
+
+    def step(self, state: DCGCState, t, stragglers) -> DCGCState:
+        if not self._valid(t):
+            return state
+        cid = _round_robin_clusters(state.prev, self.C)
+        can = _cluster_counts_ok(stragglers, cid, self.C, self.s)
+        state = self._mark_done(state, t, can, t, deadline=True)
+        # the admitted row becomes the next round's assignment input
+        state.prev = stragglers
+        return state
+
+
+class SBGCKernel(SchemeKernel):
+    """Stochastic-block GC (scenario-sweep baseline): per-round decode
+    with <= s stragglers per seed-drawn block.  The block partition is
+    read off the prototype once, as a tensor on the kernel's device, so
+    the kernel is **seed-sensitive**: the engine fans the seed axis out."""
+
+    name = "sb-gc"
+    seed_sensitive = True
+
+    def __init__(self, scheme, device="cuda"):
+        super().__init__(scheme, device)
+        self.C, self.s = scheme.C, scheme.s
+        self.block_of = torch.as_tensor(scheme.block_of, dtype=torch.int64, device=self.device)
+
+    def init_state(self, cells: int) -> SBGCState:
+        return SBGCState(**self._base_arrays(cells))
+
+    def step(self, state: SBGCState, t, stragglers) -> SBGCState:
+        if not self._valid(t):
+            return state
+        can = _cluster_counts_ok(stragglers, self.block_of, self.C, self.s)
+        return self._mark_done(state, t, can, t, deadline=True)
+
+
 class UncodedKernel(SchemeKernel):
     """Uncoded baseline: tolerates no stragglers (the gate waits every
     candidate out, so admitted straggler sets are empty)."""
@@ -555,6 +631,8 @@ _KERNELS: dict[str, type] = {
     "gc": GCKernel,
     "sr-sgc": SRSGCKernel,
     "m-sgc": MSGCKernel,
+    "dc-gc": DCGCKernel,
+    "sb-gc": SBGCKernel,
     "uncoded": UncodedKernel,
 }
 

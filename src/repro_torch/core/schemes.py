@@ -1,5 +1,5 @@
-"""Sequential gradient coding schemes (paper §3): GC, SR-SGC, M-SGC and the
-uncoded baseline.
+"""Sequential gradient coding schemes (paper §3): GC, SR-SGC, M-SGC, the
+Sec.-6 clustered baselines (dc-gc, sb-gc) and the uncoded baseline.
 
 Copy of ``src/repro/core/schemes.py`` (numpy only).  Every scheme is a
 *round scheduler* with the master-side state machine:
@@ -34,8 +34,6 @@ straggler sets admitted by ``scheme.design_model`` — under that contract
 every job-t is decodable by the end of round-(t+T) (Props 3.1 / 3.2),
 which ``collect`` asserts.
 
-The clustered baselines dc-gc and sb-gc are not ported yet (ROADMAP.md).
-
 Task descriptor vocabulary (``MiniTask.kind``):
     "ell"  — full (n,s)-GC task: all ``s+1`` cyclic chunks of job-t
              (GC / SR-SGC; a re-attempt iff job < t).
@@ -52,13 +50,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .gc import RepGradientCode, cyclic_support, make_gradient_code
+from .gc import ClusterGradientCode, RepGradientCode, cyclic_support, make_gradient_code
 from .straggler import (
     ArbitraryModel,
     BurstyModel,
+    DynamicClusterModel,
     MixtureModel,
     PerRoundModel,
     RepCoverageModel,
+    StochasticBlockModel,
     WindowwiseOr,
 )
 
@@ -69,6 +69,8 @@ __all__ = [
     "GCScheme",
     "SRSGCScheme",
     "MSGCScheme",
+    "DCGCScheme",
+    "SBGCScheme",
     "NoCodingScheme",
     "make_scheme",
     "register_scheme",
@@ -623,6 +625,208 @@ class MSGCScheme(Scheme):
 # ---------------------------------------------------------------------------
 
 
+class _ClusteredGCScheme(Scheme):
+    """Shared master state machine for the clustered per-round GC
+    baselines (Sec.-6 comparison schemes): workers are partitioned into
+    ``C`` clusters, each protected by a within-cluster gradient code of
+    tolerance ``s``, and job-t decodes from round-t survivors iff every
+    cluster keeps at least ``size - s`` of them (T = 0, like GC).  The
+    per-worker normalized load is ``(s+1)/n`` either way — each cluster
+    owns a data share proportional to its size — so these baselines
+    trade *where* tolerance sits (per cluster vs global) at EQUAL load,
+    which is exactly the comparison the scenario sweeps reproduce.
+
+    Subclasses define :meth:`_assignment`, the cluster id per worker for
+    round t, which ``assign`` records.  The port runs the descriptor
+    route only (``step`` = ``assign`` + ``observe``), so every round's
+    clustering is the one ``assign`` recorded.  ``collect`` emits REAL
+    decode coefficients: each cluster carries a within-cluster gradient
+    code (``gc.ClusterGradientCode``, fractional repetition when it
+    fits) whose decode vector is solved from the round-t survivors, so
+    the coded trainers consume these baselines like any paper scheme.
+    """
+
+    def __init__(self, n: int, J: int, *, C: int = 4, s: int = 1,
+                 seed: int = 0, prefer_rep: bool = True):
+        if not 1 <= C <= n:
+            raise ValueError(f"need 1 <= C <= n, got C={C}")
+        if n % C:
+            raise ValueError(f"{self.name} requires C | n")
+        if not 0 <= s < n // C:
+            raise ValueError(f"need 0 <= s < n/C = {n // C}, got s={s}")
+        self.n, self.J, self.C, self.s = n, J, C, s
+        self.T = 0
+        self.seed = seed
+        self._prefer_rep = prefer_rep
+        self.normalized_load = (s + 1) / n
+        self._returned: dict[int, np.ndarray] = {}   # job -> bool[n]
+        self._cid: dict[int, np.ndarray] = {}        # round -> int[n]
+        self._done: set[int] = set()
+        self._codes: dict[bytes, ClusterGradientCode] = {}
+        self._round = 0                              # latest scheduled round
+
+    def _assignment(self, t: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def _cid_at(self, t: int) -> np.ndarray:
+        """Round-t cluster ids, as ``assign(t)`` recorded them."""
+        cid = self._cid.get(t)
+        if cid is None:
+            raise KeyError(f"{self.name}: round {t} was never assigned, so it has no clustering")
+        return cid
+
+    def _code_for(self, cid: np.ndarray) -> ClusterGradientCode:
+        """Cluster code for one clustering, cached by assignment (the
+        inner (g, s) code is identical across clusterings; only the
+        embedding moves — sb-gc hits one entry, dc-gc one per distinct
+        re-clustering)."""
+        key = cid.tobytes()
+        code = self._codes.get(key)
+        if code is None:
+            code = self._codes[key] = ClusterGradientCode(
+                cid, self.s, prefer_rep=self._prefer_rep, seed=self.seed
+            )
+        return code
+
+    @property
+    def code(self) -> ClusterGradientCode:
+        """Cluster code of the most recently scheduled round: the
+        descriptor driver reads ``scheme.code.encode_matrix`` between
+        ``assign(t)`` and ``collect(t)`` (dc-gc re-embeds per round;
+        sb-gc is constant)."""
+        return self._code_for(self._cid_at(self._round))
+
+    def _code_at(self, job: int) -> ClusterGradientCode:
+        return self._code_for(self._cid_at(job))
+
+    def assign(self, t: int) -> list[MiniTask]:
+        if not 1 <= t <= self.J:
+            return [MiniTask("none", t, i) for i in range(self.n)]
+        self._cid[t] = self._assignment(t)
+        self._round = t
+        return [MiniTask("ell", t, i) for i in range(self.n)]
+
+    def observe(self, t: int, stragglers: np.ndarray) -> None:
+        if 1 <= t <= self.J:
+            self._returned[t] = ~stragglers
+
+    def _collect_jobs_oracle(self, t: int) -> list[tuple[int, int]]:
+        if t in self._done or not 1 <= t <= self.J:
+            return []
+        surv = self._returned.get(t)
+        if surv is None:
+            surv = np.zeros(self.n, dtype=bool)
+        cid = self._cid[t]
+        for c in range(self.C):
+            members = np.flatnonzero(cid == c)
+            lost = int((~surv[members]).sum())
+            if lost > self.s:
+                kept = members.size - lost
+                raise AssertionError(
+                    f"{self.name}: job {t} undecodable — cluster {c} "
+                    f"kept {kept} of {members.size} survivors "
+                    f"(lost {lost} > s = {self.s}); caller violated "
+                    "the wait-out contract"
+                )
+        self._done.add(t)
+        return [(t, t)]
+
+    def _ell_decode(self, job: int, round_done: int,
+                    surv_mask: np.ndarray) -> JobDecode:
+        surv = np.flatnonzero(surv_mask)
+        beta = self._code_at(job).decode_vector(surv)
+        return JobDecode(
+            job=job,
+            round_done=round_done,
+            ell_weights={
+                int(w): float(beta[w]) for w in surv if beta[w] != 0.0
+            },
+        )
+
+    def collect(self, t: int) -> list[JobDecode]:
+        out = []
+        for job, done_round in self._collect_jobs_oracle(t):
+            surv = self._returned.get(job)
+            if surv is None:
+                surv = np.zeros(self.n, dtype=bool)
+            out.append(self._ell_decode(job, done_round, surv))
+        return out
+
+
+class DCGCScheme(_ClusteredGCScheme):
+    """Dynamic-clustering GC (Buyukates et al., arXiv:2011.01922):
+    every round the clusters are re-formed from the PREVIOUS round's
+    straggler set — past stragglers are dealt round-robin across
+    clusters (at most ``ceil/C`` per cluster), the rest fill in worker
+    order — so temporally correlated stragglers spread out and the
+    per-cluster tolerance ``s`` covers up to ``C * s`` total stragglers
+    in the bursty regimes the paper targets.  Each round's clustering
+    re-embeds the within-cluster code into a fresh (n, n) encode
+    matrix (``_code_for`` caches per distinct clustering), so decode
+    is exact under re-clustering.  Same normalized load as an
+    (n, s)-GC; design model :class:`~.straggler.DynamicClusterModel`
+    (window 2: the previous committed row fixes the assignment)."""
+
+    name = "dc-gc"
+
+    def __init__(self, n: int, J: int, *, C: int = 4, s: int = 1,
+                 seed: int = 0, prefer_rep: bool = True):
+        super().__init__(n, J, C=C, s=s, seed=seed, prefer_rep=prefer_rep)
+        self.design_model = DynamicClusterModel(n, C, s)
+        self._prev = np.zeros(n, dtype=bool)
+
+    def _deal(self, prev: np.ndarray) -> np.ndarray:
+        # independent loop-style implementation of the kernel's
+        # cumsum-based round-robin deal (the differential oracle)
+        cid = np.empty(self.n, dtype=np.int64)
+        nxt = 0
+        for i in np.flatnonzero(prev):
+            cid[i] = nxt % self.C
+            nxt += 1
+        for i in np.flatnonzero(~prev):
+            cid[i] = nxt % self.C
+            nxt += 1
+        return cid
+
+    def _assignment(self, t: int) -> np.ndarray:
+        return self._deal(self._prev)
+
+    def observe(self, t: int, stragglers: np.ndarray) -> None:
+        super().observe(t, stragglers)
+        if 1 <= t <= self.J:
+            self._prev = np.array(stragglers, dtype=bool, copy=True)
+
+
+class SBGCScheme(_ClusteredGCScheme):
+    """Stochastic-block GC (Charles & Papailiopoulos, arXiv:1805.10378):
+    ONE seed-drawn random partition of the workers into ``C`` equal
+    blocks (the stochastic block structure of the assignment matrix),
+    fixed for the whole run; job-t decodes iff every block loses <=
+    ``s`` stragglers, with the decode vector solved block-wise from the
+    within-block code.  The block draw reads the gradient-code
+    ``seed``, so the scheme is **seed-sensitive**: the batch engine
+    fans the seed axis out instead of sharing it.
+    """
+
+    name = "sb-gc"
+    seed_sensitive = True
+
+    def __init__(self, n: int, J: int, *, C: int = 4, s: int = 1,
+                 seed: int = 0, prefer_rep: bool = True):
+        super().__init__(n, J, C=C, s=s, seed=seed, prefer_rep=prefer_rep)
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(n)
+        blocks = np.empty(n, dtype=np.int64)
+        blocks[perm] = np.arange(n) % C
+        self.block_of = blocks
+        self.design_model = StochasticBlockModel(
+            n, C, s, tuple(int(b) for b in blocks)
+        )
+
+    def _assignment(self, t: int) -> np.ndarray:
+        return self.block_of
+
+
 
 # ---------------------------------------------------------------------------
 # Uncoded baseline
@@ -705,3 +909,9 @@ def make_scheme(name: str, n: int, J: int, **kw) -> Scheme:
     if name in ("uncoded", "none", "no-coding"):
         return NoCodingScheme(n, J)
     raise ValueError(f"unknown scheme {name!r}")
+
+
+# the scenario-sweep baselines register through the public extension hooks;
+# their lockstep kernels register alongside in ``core.kernel``
+register_scheme("dc-gc", lambda n, J, **kw: DCGCScheme(n, J, **kw))
+register_scheme("sb-gc", lambda n, J, **kw: SBGCScheme(n, J, **kw))

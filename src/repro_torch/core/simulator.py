@@ -234,7 +234,7 @@ def select_parameters_legacy(
 def params_delay(name: str, params: dict) -> int:
     """The decode delay T of a scheme's parameters."""
     name = normalize_scheme_name(name)
-    if name in ("gc", "uncoded", "none", "no-coding"):
+    if name in ("gc", "dc-gc", "sb-gc", "uncoded", "none", "no-coding"):
         return 0
     if name == "sr-sgc":
         return params["B"]
@@ -245,8 +245,8 @@ def params_delay(name: str, params: dict) -> int:
 
 def default_grid(name: str, n: int, max_T: int = 3) -> list[dict]:
     """Small parameter grids mirroring App. J's search space, constrained
-    to delay T <= max_T (the paper's multi-model pipelining budget M-1).
-    The clustered baselines' grids come with their schemes (ROADMAP.md)."""
+    to delay T <= max_T (the paper's multi-model pipelining budget M-1);
+    the clustered baselines sweep C in (2, 4, 8) where C | n, and s."""
     name = normalize_scheme_name(name)
     if name == "gc":
         return [{"s": s} for s in range(0, min(n, 33))]
@@ -267,6 +267,13 @@ def default_grid(name: str, n: int, max_T: int = 3) -> list[dict]:
                 for lam in range(0, min(n, 33)):
                     out.append({"B": B, "W": W, "lam": lam})
         return out
+    if name in ("dc-gc", "sb-gc"):
+        return [
+            {"C": C, "s": s}
+            for C in (2, 4, 8)
+            if n % C == 0
+            for s in range(0, min(n // C, 17))
+        ]
     if name in ("uncoded", "none", "no-coding"):
         return [{}]
     raise ValueError(name)

@@ -59,6 +59,24 @@ def demo_scheme_kwargs(scheme_name: str, n: int) -> dict:
     }[scheme_name]
 
 
+def check_decodes_of(drv: CodedTrainingDriver) -> list:
+    """Hold every gradient ``drv`` decodes from now on against the direct
+    full-batch gradient at the job's snapshot (each check decodes the job a
+    second time).  Returns the list the worst absolute difference of each
+    decoded job is appended to."""
+    worst = []
+    apply_update = drv._apply_update
+
+    def checked(jd):
+        got, want = drv.decode_gradient(jd), drv.full_gradient(jd.job)
+        worst.append(max(float((a - b).abs().max())
+                         for a, b in zip(tree_leaves(got), tree_leaves(want))))
+        apply_update(jd)
+
+    drv._apply_update = checked
+    return worst
+
+
 def train_demo(scheme_name: str = "m-sgc", jobs: int = 40, n: int = 16, models: int = 4,
                seed: int = 0, *, device="cuda", check_decodes: bool = False) -> DemoResult:
     """Run ``jobs`` jobs of the multi-model coded MLP training.
@@ -72,17 +90,7 @@ def train_demo(scheme_name: str = "m-sgc", jobs: int = 40, n: int = 16, models: 
     drv = CodedTrainingDriver(scheme=sch, num_models=models, batch_size=256, lr=5e-3,
                               seed=seed, device=dev)
     delays = GilbertElliotSource(n=n, seed=seed).sample_delays(jobs + sch.T + 1)
-    worst = [] if check_decodes else None
-    if check_decodes:
-        apply_update = drv._apply_update
-
-        def checked(jd):
-            got, want = drv.decode_gradient(jd), drv.full_gradient(jd.job)
-            worst.append(max(float((a - b).abs().max())
-                             for a, b in zip(tree_leaves(got), tree_leaves(want))))
-            apply_update(jd)
-
-        drv._apply_update = checked
+    worst = check_decodes_of(drv) if check_decodes else None
     t0 = time.perf_counter()
     clock = drv.run(jobs, delays)
     wall = time.perf_counter() - t0

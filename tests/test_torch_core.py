@@ -3,7 +3,7 @@
 Everything here is numpy bookkeeping, so the contract is exact: encode
 matrices, decode vectors, Gilbert-Elliott patterns and delays, gate
 verdicts, and every ``JobDecode``, ``chunk_slots`` and ``decode_weights`` of
-the five schemes the port runs must equal the reference's bit for bit.
+the 7 schemes of ``scheme_grid`` must equal the reference's bit for bit.
 The port's schemes take the descriptor route (``step`` = assign + observe,
 ``collect_decodes`` = collect); the reference's ``collect_decodes`` reads its
 lockstep kernel.  Those are the decodes its trainer consumes, so they are
@@ -23,8 +23,8 @@ from repro_torch.core import straggler as tst
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 8
-# the five of examples/multimodel_training.py scheme_grid(8) that the port runs
-SPEC_LABELS = ("m-sgc", "sr-sgc", "gc-rep", "gc", "uncoded")
+# the 7 schemes of examples/multimodel_training.py scheme_grid(8)
+SPEC_LABELS = ("m-sgc", "sr-sgc", "gc-rep", "gc", "dc-gc", "sb-gc", "uncoded")
 
 
 @pytest.fixture(scope="module")
@@ -168,5 +168,6 @@ def test_scheme_task_tables_equal_the_reference(rc, label):
 def test_make_scheme_names_and_errors():
     assert tc.make_scheme("M_SGC", 8, 4, B=1, W=2, lam=2).name == "m-sgc"
     assert tc.make_scheme("none", 8, 4).name == "uncoded"
+    assert tc.make_scheme("DC_GC", 8, 4, C=2, s=1).name == "dc-gc"
     with pytest.raises(ValueError, match="unknown scheme"):
-        tc.make_scheme("dc-gc", 8, 4)
+        tc.make_scheme("no-such-scheme", 8, 4)

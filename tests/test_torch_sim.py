@@ -25,7 +25,8 @@ from repro_torch.kernels.gate_window import ref as gw_ref
 GE = dict(p_ns=0.08, p_sn=0.6, slow_factor=6.0)   # tests/test_lockstep.py
 CPU = "cpu"
 
-# tests/test_lockstep.py's CONFIGS without the clustered baselines
+# tests/test_lockstep.py's CONFIGS; its clustered baselines' cases are in
+# tests/test_torch_clustered.py
 CONFIGS = [
     ("gc", dict(s=3)),                     # 4 | 12 -> GC-Rep
     ("gc", dict(s=3, prefer_rep=False)),   # general code
@@ -387,7 +388,7 @@ def test_default_grid_and_params_delay_equal_the_reference(rc):
     assert tc.estimate_alpha(12) == rc.estimate_alpha(12)
     np.testing.assert_array_equal(tc.reference_profile(8, 10, seed=2),
                                   rsim.reference_profile(8, 10, seed=2))
-    assert not tc.has_kernel("dc-gc") and not tc.has_kernel("sb-gc")
+    assert tc.has_kernel("dc-gc") and tc.has_kernel("sb-gc")
 
 
 def test_run_adaptive_matches_the_reference():

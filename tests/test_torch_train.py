@@ -4,7 +4,8 @@ On the CPU, in f32, from the same numpy inputs and converted parameters:
 AdamW, the data plumbing, ``loss_fn`` and its gradients, the coded train
 step (the exactness contract of ``tests/test_coded_master.py``: per-chunk
 weights sum to 1, straggler rows are zero, coded gradient == full-batch
-gradient, step loss == full-batch loss) for the five schemes the port runs,
+gradient, step loss == full-batch loss) for the paper's schemes (the
+clustered baselines' are in ``tests/test_torch_clustered.py``),
 both drivers, and the ``launch.train`` entry points.  On the card
 (``-m cuda``): the coded step through the kernels against the plain path,
 and the demo driver's ``coded_combine`` launches.
