@@ -7,9 +7,10 @@ Phases, one or more printed lines each; any failure exits non-zero:
   1. device        -- card name, count, and nvidia-smi's name and power limit;
   2. build         -- nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
                       each kernel's ptxas registers, shared memory and spills;
-                      fails unless every bf16 attention and ssd_scan kernel's
-                      SASS holds HMMA (tensor-core) instructions and none
-                      spills at head dim 64, unless both gate-window
+                      fails unless every bf16 attention (head dims 32, 64, 80
+                      and 128) and ssd_scan kernel's SASS holds HMMA
+                      (tensor-core) instructions and none spills at head dim
+                      64, nor attention at 80, unless both gate-window
                       kernels build unspilled in all four row buckets, and
                       unless all 24 RMSNorm backward kernels (four buckets of
                       warps a row and the chunked path, four dtype pairs)
@@ -17,11 +18,14 @@ Phases, one or more printed lines each; any failure exits non-zero:
   3. rmsnorm       -- the kernel against its plain PyTorch version on the card;
   4. attention     -- the kernel against its plain PyTorch version on the card,
                       f32 (CUDA cores) and bf16 (tensor cores), the bf16 edges
-                      of ``ATTN_BF16_EDGES``;
+                      of ``ATTN_BF16_EDGES``; at head dim 80 (zamba2-2.7b's
+                      shared attention) its served strided layout and the
+                      edges again, in f32 and bf16;
   5. gc_coding     -- the coded-combine kernel against its plain version;
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
      attention-bwd    at the training shapes, in f32 and bf16, and attention's
-                      bf16 edges; bf16 with q = k = v (a near one-hot softmax)
+                      bf16 edges, and its head-dim-80 cases in f32 and bf16;
+                      bf16 with q = k = v (a near one-hot softmax)
                       against autograd of the f32 plain version.  The RMSNorm
                       backward also at d 2048, 4096 and 8192, with gamma in
                       f32 and bf16; its dgamma (and dx) bit-identical over 10
@@ -32,15 +36,19 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       cast in its epilogue) against their plain versions, f32
                       and bf16: tests/test_ssd_kernel.py's shapes, a ragged
                       final chunk, odd Q and head_dim, strided views,
-                      mamba2-1.3b's full width, and a steep decay whose
-                      unmasked exp would overflow; misaligned views refused;
+                      mamba2-1.3b's and zamba2-2.7b's full widths, and a steep
+                      decay whose unmasked exp would overflow; misaligned
+                      views refused;
   8. slice         -- full-width qwen2-0.5b serving through ``serve()`` (prefill
                       of 8 x 500 prompt tokens, 31 greedy decode steps), with
                       the kernels' launch counts read around that run; then a
                       float32 teacher-forced run through the kernels and
                       through the plain versions, whose logits must agree.
                       A profiled prefill and decode step give the device's
-                      busy time by kernel category and its idle share;
+                      busy time by kernel category and its idle share.  The
+                      same for full-width llama3.2-1b (16 layers, GQA 32/8,
+                      tied head, rope theta 5e5): 16 attention and 1,056
+                      rmsnorm launches a request;
   9. slice-ssm     -- the same for full-width mamba2-1.3b (48 Mamba2 blocks,
                       attention-free): exactly 48 ``ssd_scan`` launches, all
                       of the fused chunk-scan entry, and 3,104 ``rmsnorm``
@@ -51,6 +59,12 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       block's prefill, device ms and launches per pass of
                       ``ssd_chunked`` (its profiler ranges), the
                       non-vectorised elementwise launches named;
+  9b. slice-hybrid -- the same for full-width zamba2-2.7b (54 Mamba2 blocks and
+                      one shared attention + MLP block after every 6, its
+                      attention at head dim 80): exactly 9 attention, 54 fused
+                      ``ssd_scan`` (0 intra) and 127 x 32 = 4,064 rmsnorm
+                      launches around the served request; f32 teacher-forced
+                      logits through the kernels and through ``plain=True``;
  10. train-demo    -- ``train_demo()`` (the multi-model coded MLP training of
                       ``launch/train.py --demo``) for gc, sr-sgc, m-sgc and
                       uncoded: every decoded gradient against the full-batch
@@ -59,8 +73,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
  11. train-full    -- ``VectorizedCodedTrainer`` on full-width qwen2-0.5b in
                       bf16 (2 models, 8 workers, 4 jobs, GE stragglers) for gc
                       and m-sgc: simulated clock, coded-step time, peak memory,
-                      exact launches per step, finite losses; a profiled step;
-                      how often the RMSNorm backward's dy came non-contiguous;
+                      exact launches per step (each layer body rematerialised:
+                      its forward kernels run again in the backward), finite
+                      losses; a profiled step; GC's step profiled with and
+                      without remat, in turns; how often the RMSNorm
+                      backward's dy came non-contiguous;
                       then one f32 coded gradient at 2 layers (full widths and
                       vocab) against the full-batch gradient and the plain path;
  12. gate_window   -- both gate-window kernels against their plain versions,
@@ -105,7 +122,8 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       time the card could take (published H100 peaks), achieved
                       rates and share of that bound; attention in bf16 and f32
                       at the prefill's and the coded step's shapes, with SDPA
-                      (or its autograd) and each kernel's ptxas line; both
+                      (or its autograd) and each kernel's ptxas line, and at
+                      head dim 80 at zamba2-2.7b's prefill shape; both
                       ssd_scan entries, the fused one beside the torch passes
                       it replaces; both gate-window kernels also at (4096, 3,
                       256), each beside a one-element fill_ (the launch floor)
@@ -138,7 +156,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32": 67e12}
 
 ARCH = "qwen2-0.5b"
+DENSE_ARCHS = (ARCH, "llama3.2-1b")   # [slice] serves both
 SSM_ARCH = "mamba2-1.3b"
+HYBRID_ARCH = "zamba2-2.7b"
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 500, 32
 MAX_SEQ = PROMPT_LEN + NEW_TOKENS
 LOGIT_TOL = 2e-3          # tests/test_prefill.py's prefill/decode tolerance
@@ -159,6 +179,10 @@ ATTN_BF16_EDGES = [
     *[(2, 2 * group, 2, 130, 130, 64, True, 0, None) for group in (1, 2, 7, 8)],
     *[(1, 4, 2, 300, 300, 64, causal, 32, 100) for causal in (False, True)],
 ]
+# the same edges at zamba2-2.7b's head dim 80, and its served layout: q, k and
+# v (8, 32, 500, 80) views of the (8, 500, 32, 80) projections, causal
+ATTN_DH80_CASES = list(dict.fromkeys(c[:5] + (80,) + c[6:] for c in ATTN_BF16_EDGES))
+ATTN_DH80_SERVED = (BATCH, 32, 32, PROMPT_LEN, PROMPT_LEN, 80, True, 0, None)
 GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}         # tests/test_kernels.py
 SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}        # tests/test_ssd_kernel.py
 # f32 gradients, kernels against plain autograd: sums over thousands of rows
@@ -341,7 +365,7 @@ def main() -> None:
     attn = {label: n for label, n in sorted(hmma.items()) if label.startswith("attn_")}
     say("build", f"HMMA instructions in the SASS: {attn}")
     bf16_attn = [label for label in attn if "_bf16_kernel<" in label]
-    if len(bf16_attn) != 9 or not all(attn[label] for label in bf16_attn):
+    if len(bf16_attn) != 12 or not all(attn[label] for label in bf16_attn):
         fail(f"the bf16 attention kernels' SASS lacks tensor-core instructions: {attn}")
     # ... and so do both products of the bf16 SSD chunk scan
     ssd = {label: n for label, n in sorted(hmma.items()) if label.startswith("ssd_")}
@@ -361,11 +385,12 @@ def main() -> None:
     if len(rn_bwd_built) != 24 or any("0 bytes spill stores, 0 bytes spill loads" not in line
                                       for line in rn_bwd_built.values()):
         fail(f"the RMSNorm backward kernels spill or lack a bucket: {rn_bwd_built}")
-    for label in ("attn_fwd_bf16_kernel<64>", "attn_bwd_dq_bf16_kernel<64>",
-                  "attn_bwd_dkdv_bf16_kernel<64>",
+    for label in (*[f"{k}<{dh}>" for dh in (64, 80) for k in (
+                      "attn_fwd_bf16_kernel", "attn_bwd_dq_bf16_kernel",
+                      "attn_bwd_dkdv_bf16_kernel")],
                   *[label for label in bf16_ssd if ", 64, " in label]):
         if "0 bytes spill stores, 0 bytes spill loads" not in ptxas.get(label, ""):
-            fail(f"{label} spills at head dim 64: {ptxas.get(label)}")
+            fail(f"{label} spills at its model's head dim: {ptxas.get(label)}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -418,6 +443,8 @@ def main() -> None:
         (1, 14, 2, 200, 200, 64, True, 0, None, torch.float32, True),
     ]
     cases += [c + (torch.bfloat16, True) for c in ATTN_BF16_EDGES]
+    cases += [c + (dtype, True) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES)
+              for dtype in (torch.float32, torch.bfloat16)]
     for b, hq, hkv, sq, sk, dh, causal, window, valid_k, dtype, strided in cases:
         if strided:
             q, k, v = (heads_view(b, hq, sq, dh, dtype), heads_view(b, hkv, sk, dh, dtype),
@@ -433,7 +460,7 @@ def main() -> None:
             ATTN_TOL[str(dtype).split(".")[1]],
         )
         if (b, sq, dtype) == (BATCH, PROMPT_LEN, torch.bfloat16):
-            errs["flash_attention"] = err
+            errs["flash_attention" if dh == 64 else "flash_attention dh80"] = err
     torch.cuda.synchronize()
 
     cfg = get_config(ARCH)
@@ -460,7 +487,9 @@ def main() -> None:
         (2, hq, hkv, 33, 33, dh, True, 0, None, torch.float32),
         (1, 4, 2, 256, 256, dh, True, 96, None, torch.float32),
         (1, 8, 1, 200, 200, dh, False, 0, None, torch.float32),
-    ] + [c + (torch.bfloat16,) for c in ATTN_BF16_EDGES]
+    ] + [c + (torch.bfloat16,) for c in ATTN_BF16_EDGES] + \
+        [c + (dtype,) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES)
+         for dtype in (torch.float32, torch.bfloat16)]
     for b, h, g_kv, sq, sk, dh_, causal, window, valid_k, dtype in bwd_cases:
         q, do = (heads_view(b, h, sq, dh_, dtype) for _ in range(2))
         k, v = (heads_view(b, g_kv, sk, dh_, dtype) for _ in range(2))
@@ -474,6 +503,8 @@ def main() -> None:
                   for name, a, bb in zip(("dq", "dk", "dv"), got, want))
         if (b, dtype) == (TRAIN_SEQS, torch.bfloat16):
             errs["flash_attention_bwd"] = err
+        if (b, sq, dh_, dtype) == (BATCH, PROMPT_LEN, 80, torch.bfloat16):
+            errs["flash_attention_bwd dh80"] = err
     # q = k = v in bf16: a near one-hot softmax, where dP - D cancels on the
     # diagonal; against autograd of the f32 plain version on the same values
     for b, h, g_kv in ((2, 4, 4), (TRAIN_SEQS, hq, hkv)):
@@ -494,11 +525,15 @@ def main() -> None:
     # 7. ssd_scan kernel vs plain, both entries
     errs.update(_ssd_check(dev))
 
-    # 8. slice: full-width qwen2-0.5b serving through the port's entry point
-    L = cfg.num_layers
-    launches = _serve_slice("slice", dev, cfg, gen,
-                            {"flash_attention": fa_kernel, "rmsnorm": rn_kernel},
-                            {"flash_attention": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
+    # 8. slice: full-width qwen2-0.5b and llama3.2-1b serving through the
+    # port's entry point (the JSON line's launches are qwen2-0.5b's)
+    for arch in DENSE_ARCHS:
+        L = get_config(arch).num_layers
+        got = _serve_slice("slice", dev, get_config(arch), gen,
+                           {"flash_attention": fa_kernel, "rmsnorm": rn_kernel},
+                           {"flash_attention": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
+        if arch == ARCH:
+            launches = got
 
     # 9. slice-ssm: the same for full-width mamba2-1.3b
     scfg = get_config(SSM_ARCH)
@@ -514,6 +549,18 @@ def main() -> None:
 
     # where one mamba2-1.3b block's prefill time goes, pass by pass
     _profile_ssd_chunked(dev)
+
+    # 9b. slice-hybrid: full-width zamba2-2.7b, the shared block's attention
+    # at head dim 80; per forward 2 norms a Mamba2 layer and a shared call, and
+    # the final norm
+    hcfg = get_config(HYBRID_ARCH)
+    L, G = hcfg.num_layers, hcfg.num_layers // hcfg.attn_every
+    hybrid_launches = _serve_slice(
+        "slice-hybrid", dev, hcfg, gen,
+        {"flash_attention": fa_kernel, "ssd_chunk_scan": scan_kernel,
+         "ssd_intra_chunk": ssd_kernel, "rmsnorm": rn_kernel},
+        {"flash_attention": G, "ssd_chunk_scan": L, "ssd_intra_chunk": 0,
+         "rmsnorm": (2 * L + 2 * G + 1) * NEW_TOKENS})
 
     # 10. train-demo: the multi-model coded MLP training of launch/train.py --demo
     launches["coded_combine"] = _train_demo(dev)
@@ -554,13 +601,20 @@ def main() -> None:
                    f"{_cuda_ms(lambda: rn_kernel(xd, g), 500):.5f} ms")
 
     rows += _attention_timings(cfg, heads_view, ptxas)
+    for row in _attention_dh80_timings(heads_view, ptxas):
+        # not on the main path of [slice]: launches from the hybrid's request
+        row["launches"] = hybrid_launches.get(row["name"], 0)
+        row["launches_of"] = f"[slice-hybrid] ({HYBRID_ARCH} serving)"
+        row["max_abs_err"] = errs[f"{row['name']} dh80"]
+        rows.append(row)
     rows += _training_timings(dev, cfg, randn, ptxas)
     rows += _gate_window_timings(dev)
     rows += _ssd_timing(dev)
     _rmsnorm_bwd_turn()
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        r["max_abs_err"] = errs[r["name"]]
+        if r["launches"] is None:
+            r["launches"] = launches[r["name"]]
+            r["max_abs_err"] = errs[r["name"]]
         say("timings", f"{r['name']} {r['shape']}: kernel {r['ms']:.5f} ms, "
                        f"plain {r['plain_ms']:.5f} ms, library {_ms(r['library_ms'])}, bound "
                        f"{r['bound_ms']:.5f} ms by {r['bound_by']} ({_rates(r)}); per call with host "
@@ -701,8 +755,10 @@ def _train_full(dev, cfg) -> dict:
     counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
                 "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd, "coded_combine": coded_combine}
     L = cfg.num_layers
-    # per coded step: one forward and one backward of each norm and attention
-    per_step = {"flash_attention": L, "flash_attention_bwd": L, "rmsnorm": 2 * L + 1,
+    # per coded step: one backward of each norm and attention, and two
+    # forwards of those inside a layer (its body runs again in the backward,
+    # cfg.remat); the final norm's forward once
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L, "rmsnorm": 4 * L + 1,
                 "rmsnorm_bwd": 2 * L + 1, "coded_combine": 0}
     totals = dict.fromkeys(("rmsnorm_bwd", "flash_attention_bwd"), 0)
     for name, kw in TRAIN_SCHEMES.items():
@@ -769,9 +825,36 @@ def _train_full(dev, cfg) -> dict:
             totals[k] += launches[k]
         _breakdown(f"profile train-full {name} step",
                    _device_events(lambda: step(*last["args"])), median_ms)
+        if name == "gc":
+            _remat_turns(cfg, tr, step, last["args"])
         del tr, last
         torch.cuda.empty_cache()
     return totals
+
+
+def _remat_turns(cfg, tr, step, args) -> None:
+    """The coded step's device time and peak memory with its layer bodies
+    rematerialised (``cfg.remat``, as the JAX package's step does) and
+    without, in turns (remat, none, none, remat), on the same inputs."""
+    import torch
+
+    from repro_torch.train.coded import make_coded_train_step
+
+    plain_step = make_coded_train_step(cfg.replace(remat=False), tr.scheme.n,
+                                       getattr(tr.scheme, "s", 0), lr=tr.lr,
+                                       num_chunks=tr.num_chunks)
+    got = {"remat": [], "none": []}
+    for label in ("remat", "none", "none", "remat"):
+        fn = step if label == "remat" else plain_step
+        fn(*args)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        busy = sum(t for _, t in _device_events(lambda: fn(*args))) / 1e3
+        got[label].append((busy, torch.cuda.max_memory_allocated()))
+    say("train-full", "gc step with its layer bodies rematerialised and without, in turns: "
+                      + "; ".join(f"{k}: device busy {[round(b, 3) for b, _ in v]} ms, "
+                                  f"max_memory_allocated {[m for _, m in v]} B"
+                                  for k, v in got.items()))
 
 
 def _coded_gradient_check(dev, cfg) -> None:
@@ -844,15 +927,6 @@ def _attention_timings(cfg, heads_view, ptxas) -> list:
     replaces = "src/repro/kernels/flash_attention/flash_attention.py:45"
     rows = []
 
-    def report(row, what, *labels):
-        built = "; ".join(f"{label}: {ptxas.get(label, 'not in the build log')}"
-                          for label in labels)
-        say("timings", f"{what} {row['shape']}: kernel {row['ms']:.5f} ms, {_rates(row)} "
-                       f"({row['bound_ms']:.5f} ms by {row['bound_by']}); library "
-                       f"{_ms(row['library_ms'])} (kernel / library "
-                       f"{row['ms'] / row['library_ms']:.3f}); plain {row['plain_ms']:.5f} ms; "
-                       f"ptxas {built}")
-
     for dtype in (torch.bfloat16, torch.float32):
         bf16 = dtype == torch.bfloat16
         op_type, sfx = ("bf16_tensor", "bf16_kernel<") if bf16 else ("f32", "kernel<float, ")
@@ -868,8 +942,8 @@ def _attention_timings(cfg, heads_view, ptxas) -> list:
                 lambda: fa_ref.attention(q, k, v, causal=True),
                 lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
                 n_bytes, 4 * dh * pairs, op_type, iters=100)  # q.k and p.v
-            report(row, f"forward {_dtype_name(dtype)}{' with lse' if with_lse else ''}",
-                   f"attn_fwd_{sfx}{dh}>")
+            _say_attention(row, f"forward {_dtype_name(dtype)}{' with lse' if with_lse else ''}",
+                           ptxas, f"attn_fwd_{sfx}{dh}>")
             if bf16 and not with_lse:
                 rows.append(row)
 
@@ -888,12 +962,77 @@ def _attention_timings(cfg, heads_view, ptxas) -> list:
             lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do, retain_graph=True),
             lambda: torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True),
             n_bytes, 10 * dh * pairs, op_type, iters=100)  # S again, dP, dV, dQ, dK
-        report(row, f"backward {_dtype_name(dtype)}", f"attn_bwd_dq_{sfx}{dh}>",
-               f"attn_bwd_dkdv_{sfx}{dh}>")
+        _say_attention(row, f"backward {_dtype_name(dtype)}", ptxas, f"attn_bwd_dq_{sfx}{dh}>",
+                       f"attn_bwd_dkdv_{sfx}{dh}>")
         if bf16:
             rows.append(row)
         torch.cuda.empty_cache()
     return rows
+
+
+def _attention_dh80_timings(heads_view, ptxas) -> list:
+    """Both attention kernels at zamba2-2.7b's shared attention, q, k, v (8,
+    32, 500, 80) strided, causal, bf16 (the forward as served, the backward at
+    the same shape) beside SDPA or its autograd and the bound; the f32
+    forward beside them.  Returns the two bf16 JSON rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+
+    b, hq, hkv, s, _, dh = ATTN_DH80_SERVED[:6]
+    replaces = "src/repro/kernels/flash_attention/flash_attention.py:45"
+    pairs = b * hq * s * (s + 1) // 2  # causal (q, k) pairs
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        bf16 = dtype == torch.bfloat16
+        op_type, sfx = ("bf16_tensor", "bf16_kernel<") if bf16 else ("f32", "kernel<float, ")
+        q, do = (heads_view(b, hq, s, dh, dtype) for _ in range(2))
+        k, v = (heads_view(b, hkv, s, dh, dtype) for _ in range(2))
+        row = _timed(
+            "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu", replaces,
+            tuple(q.shape), lambda: flash_attention(q, k, v, causal=True),
+            lambda: fa_ref.attention(q, k, v, causal=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            sum(t.numel() * t.element_size() for t in (q, k, v, q)), 4 * dh * pairs, op_type,
+            iters=50)
+        _say_attention(row, f"forward {_dtype_name(dtype)} at head dim 80", ptxas,
+                       f"attn_fwd_{sfx}{dh}>")
+        if not bf16:
+            break
+        rows.append(row)
+        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        y_plain = fa_ref.attention(qr, kr, vr, causal=True)
+        y_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, do, q, k, v)) + \
+            lse.numel() * 4
+        row = _timed(
+            "flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces, tuple(q.shape),
+            lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
+            lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do, retain_graph=True),
+            lambda: torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True),
+            n_bytes, 10 * dh * pairs, op_type, iters=50)
+        _say_attention(row, "backward bf16 at head dim 80", ptxas, f"attn_bwd_dq_{sfx}{dh}>",
+                       f"attn_bwd_dkdv_{sfx}{dh}>")
+        rows.append(row)
+        del y_plain, y_lib, qr, kr, vr
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _say_attention(row, what, ptxas, *labels) -> None:
+    built = "; ".join(f"{label}: {ptxas.get(label, 'not in the build log')}" for label in labels)
+    say("timings", f"{what} {row['shape']}: kernel {row['ms']:.5f} ms, {_rates(row)} "
+                   f"({row['bound_ms']:.5f} ms by {row['bound_by']}); library "
+                   f"{_ms(row['library_ms'])} (kernel / library "
+                   f"{row['ms'] / row['library_ms']:.3f}); plain {row['plain_ms']:.5f} ms; "
+                   f"ptxas {built}")
 
 
 def _training_timings(dev, cfg, randn, ptxas) -> list:
@@ -1439,7 +1578,8 @@ def _coded_train(dev, cfg) -> None:
     counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
                 "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd}
     L = cfg.num_layers
-    per_step = {"flash_attention": L, "flash_attention_bwd": L, "rmsnorm": 2 * L + 1,
+    # as [train-full]: the layer bodies' forward kernels run again in the backward
+    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L, "rmsnorm": 4 * L + 1,
                 "rmsnorm_bwd": 2 * L + 1}
     profiled = {}
 
@@ -1644,6 +1784,7 @@ def _ssd_check(dev) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     full = (BATCH, -(-PROMPT_LEN // 64), 64, 64, 64, 128)   # as [slice-ssm] gives it,
     full_tail = full[1] * 64 - PROMPT_LEN                    # with s = PROMPT_LEN
+    hybrid = (BATCH, full[1], 64, 80, 64, 64)                # as [slice-hybrid] gives it
     cases = [  # (b, nc, Q, nh, hd, st), dtype, A_scale, tail rows, note
         *[(s, dt, 1.0, 0, "") for s in [(2, 2, 16, 3, 8, 5), (1, 4, 64, 4, 32, 16),
                                         (2, 1, 128, 2, 64, 32), (1, 2, 64, 8, 8, 128)]
@@ -1653,6 +1794,7 @@ def _ssd_check(dev) -> dict:
         *[((2, 3, 50, 3, 20, 5), dt, 1.0, 0, " odd Q and head_dim") for dt in (f32, bf16)],
         (full, f32, 1.0, full_tail, " full width"),
         (full, bf16, 1.0, full_tail, " full width"),
+        *[(hybrid, dt, 1.0, full_tail, f" {HYBRID_ARCH}'s full width") for dt in (f32, bf16)],
         *[((1, 2, 64, 4, 16, 8), dt, 200.0, 0, " steep decay") for dt in (f32, bf16)],
     ]
 

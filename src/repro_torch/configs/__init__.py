@@ -11,22 +11,24 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
+from .shapes import SHAPES, InputShape, input_specs, skip_reason
+
 _MODULES = {
+    "llama3.2-1b": "llama3_2_1b",
+    "qwen2-72b": "qwen2_72b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "zamba2-2.7b": "zamba2_2_7b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "deepseek-67b": "deepseek_67b",
 }
 
 # architectures of the JAX package not yet runnable here -> ROADMAP item
 _UNPORTED = {
-    "llama3.2-1b": "A-2 (configs of the dense family)",
-    "qwen2-72b": "A-2 (configs of the dense family)",
-    "deepseek-67b": "A-2 (configs of the dense family)",
-    "mixtral-8x22b": "A-8 (MoE family)",
-    "qwen2-moe-a2.7b": "A-8 (MoE family)",
-    "zamba2-2.7b": "A-8 (hybrid family: its shared attention has head_dim 80, and the "
-                   "attention kernel takes 32, 64 or 128)",
-    "paligemma-3b": "A-8 (vlm family)",
-    "hubert-xlarge": "A-8 (audio family)",
+    "mixtral-8x22b": "A-5 (MoE family)",
+    "qwen2-moe-a2.7b": "A-5 (MoE family)",
+    "paligemma-3b": "A-6 (vlm family: its attention has head_dim 256, which the attention "
+                    "kernels do not take)",
+    "hubert-xlarge": "A-6 (audio family)",
 }
 
 ARCHS = list(_MODULES)
@@ -50,4 +52,12 @@ def get_smoke(arch: str) -> ModelConfig:
     return _mod(arch).SMOKE
 
 
-__all__ = ["ARCHS", "get_config", "get_smoke"]
+__all__ = [
+    "ARCHS",
+    "SHAPES",
+    "InputShape",
+    "get_config",
+    "get_smoke",
+    "input_specs",
+    "skip_reason",
+]

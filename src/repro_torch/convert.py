@@ -6,7 +6,8 @@ Each converter takes a JAX package pytree converted to numpy arrays
 * ``params_from_jax``: a model's parameters.  Both packages keep dense
   weights as (d_in, d_out) applied as ``x @ w``, so no weight is
   transposed; the stacked ``layers`` arrays (L, ...) are split into one
-  dict per layer, and a tied head stays ``embed.T``.  Leaves are cast to the
+  dict per layer, the hybrid's ``shared_attn`` (one block, not stacked)
+  stays one dict, and a tied head stays ``embed.T``.  Leaves are cast to the
   model dtype, but for those the JAX package keeps in f32 whatever the model
   dtype (the ssm block's ``A_log``, ``D`` and ``dt_bias``).
 * ``mlp_params_from_jax``: the coded-training driver's ``MLPModel``
@@ -22,7 +23,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import F32_PARAMS
-from repro_torch.models.transformer import torch_dtype
+from repro_torch.models.transformer import _check_family, torch_dtype
 from repro_torch.optim import AdamWState
 
 
@@ -39,8 +40,7 @@ def _map(tree, fn, path=()):
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda", dtype=None) -> dict:
-    if cfg.family not in ("dense", "ssm"):
-        raise NotImplementedError(f"{cfg.family} weights are not ported yet; see ROADMAP.md A-8")
+    _check_family(cfg)
     dtype = dtype or torch_dtype(cfg)
 
     def conv(path, a):

@@ -21,3 +21,16 @@ template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
+
+// How the f32 attention kernels (flash_attention.cu, flash_attention_bwd.cu)
+// split a row of DH columns: kThreads neighbouring threads, a power of two so
+// that their partial dot products meet by xor shuffles, each owning kRuns runs
+// of 4 columns, run r of thread `sub` at columns (r * kThreads + sub) * 4.  Head
+// dims that are multiples of 32 take DH / 32 threads of 8 runs; 80 takes 4
+// threads of 5 runs.
+template <int DH>
+struct RowSplit {
+  static constexpr int kThreads = DH % 32 == 0 ? DH / 32 : 4;
+  static constexpr int kRuns = DH / (4 * kThreads);
+  static_assert(DH == 4 * kThreads * kRuns, "a row must split into whole runs of 4");
+};

@@ -8,7 +8,8 @@
 // 4.9 us at 3.35 TB/s.  Its products over the causal half, 3.6 GFLOP, take 3.6 us
 // even at the 989 TFLOP/s bf16 tensor-core peak, so it is bound by bytes.  At
 // the coded training step's q (128, 14, 64, 64) with lse it moves 21.4 MB (6.4
-// us) for 1.0 GFLOP.
+// us) for 1.0 GFLOP.  At zamba2-2.7b's shared attention (q, k, v (8, 32, 500,
+// 80), causal) it moves 81.9 MB (24.5 us) for 10.3 GFLOP (10.4 us): bytes again.
 //
 // Two kernels, chosen by dtype:
 // * bf16 (attn_fwd_bf16_kernel), the served and trained dtype, on the tensor
@@ -27,8 +28,9 @@
 //   - The q tile goes through shared memory once into A fragments that stay in
 //     registers.  K and V tiles of 64 keys are staged in bf16 in a two-stage
 //     cp.async ring, so the next tile loads during this tile's math; the ring
-//     and the q tile take 46 KB at dh 64 and 87 KB at dh 128 (dynamic shared
-//     memory).  Rows are padded by 16 bytes, so ldmatrix has no bank conflicts.
+//     and the q tile take 46 KB at dh 64, 55 KB at dh 80 and 87 KB at dh 128
+//     (dynamic shared memory).  Rows are padded by 16 bytes, so ldmatrix has
+//     no bank conflicts.
 //   - S = Q.K^T by mma.sync with K read by ldmatrix; the online softmax runs in
 //     f32 on the accumulator fragments (row max and sum across the lane quad by
 //     two shuffles, exp2 with scale*log2(e) folded in).  P is rounded to bf16
@@ -46,8 +48,9 @@
 //     pays only where products dominate (long sequences, dh 128 at large batch).
 // * f32 (attn_fwd_kernel), the dtype of the logits checks, as the JAX kernel
 //   contracts f32 inputs in f32: f32 FMAs on the CUDA cores, kv tiles of 32
-//   keys staged as f32, a query row owned by dh/32 neighbouring threads, each
-//   holding 32 of its elements in runs of 4 and meeting the others by shuffles.
+//   keys staged as f32, a query row owned by a few neighbouring threads, each
+//   holding runs of 4 of its elements and meeting the others by shuffles
+//   (RowSplit in common.cuh: dh/32 threads of 32 elements, or 4 of 20 at dh 80).
 //
 // Both take q, k, v and o through (batch, head, seq) strides with a contiguous
 // last dim, so callers pass head-transposed views without copies; q-head h reads
@@ -79,11 +82,11 @@ struct AttnArgs {
 };
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kBlockQ * (DH / 32))
+__global__ void __launch_bounds__(kBlockQ * RowSplit<DH>::kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 T* __restrict__ o, float* __restrict__ lse, const AttnArgs a) {
-  constexpr int TPR = DH / 32;  // threads per query row
-  constexpr int RUNS = 8;       // runs of 4 elements a thread owns: 8 * 4 = 32
+  constexpr int TPR = RowSplit<DH>::kThreads;  // threads per query row
+  constexpr int RUNS = RowSplit<DH>::kRuns;    // runs of 4 elements a thread owns
   __shared__ __align__(16) float ks[kBlockK][DH];
   __shared__ __align__(16) float vs[kBlockK][DH];
 
@@ -182,21 +185,26 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int e = 0; e < 4; ++e) op[(r * TPR + sub) * 4 + e] = from_f32<T>(acc[r][e] / safe_l);
 }
 
+template <typename T, int DH>
+cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                      const AttnArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.hq, b);
+  attn_fwd_kernel<T, DH><<<grid, kBlockQ * RowSplit<DH>::kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, a);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                    int dh, const AttnArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.hq, b);
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
   switch (dh) {
-    case 32: attn_fwd_kernel<T, 32><<<grid, kBlockQ * 1, 0, stream>>>(qt, kt, vt, ot, lse, a); break;
-    case 64: attn_fwd_kernel<T, 64><<<grid, kBlockQ * 2, 0, stream>>>(qt, kt, vt, ot, lse, a); break;
-    case 128: attn_fwd_kernel<T, 128><<<grid, kBlockQ * 4, 0, stream>>>(qt, kt, vt, ot, lse, a); break;
+    case 32: return launch_dh<T, 32>(q, k, v, o, lse, b, a, stream);
+    case 64: return launch_dh<T, 64>(q, k, v, o, lse, b, a, stream);
+    case 80: return launch_dh<T, 80>(q, k, v, o, lse, b, a, stream);
+    case 128: return launch_dh<T, 128>(q, k, v, o, lse, b, a, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 // -- bf16 on the tensor cores --------------------------------------------------
@@ -365,6 +373,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
   switch (dh) {
     case 32: return launch_bf16_dh<32>(qt, kt, vt, ot, lse, b, a, stream);
     case 64: return launch_bf16_dh<64>(qt, kt, vt, ot, lse, b, a, stream);
+    case 80: return launch_bf16_dh<80>(qt, kt, vt, ot, lse, b, a, stream);
     case 128: return launch_bf16_dh<128>(qt, kt, vt, ot, lse, b, a, stream);
     default: return cudaErrorInvalidValue;
   }

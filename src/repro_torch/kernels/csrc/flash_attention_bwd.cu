@@ -48,12 +48,14 @@
 //   - Masks apply per element only on tiles that cross an edge; tiles wholly
 //     outside the band are skipped.  Rows of a fully masked query have lse +inf
 //     from the forward, so their P is 0.  Shared memory: 56 KB (dq) and 56 KB
-//     (dkdv) at dh 64, dynamic.  mma.sync rather than wgmma: the bound is bytes
-//     at these shapes (see flash_attention.cu).
+//     (dkdv) at dh 64, 67 KB at dh 80, dynamic.  Above dh 64 (80 and 128) the
+//     resident operands' fragments are read from shared memory at each use.
+//     mma.sync rather than wgmma: the bound is bytes at these shapes (see
+//     flash_attention.cu).
 // * f32 (attn_bwd_dq_kernel, attn_bwd_dkdv_kernel), the dtype of the gradient
 //   checks: f32 FMAs on the CUDA cores with the f32 forward's thread layout (a
-//   row owned by dh/32 neighbouring threads, tiles of 32 keys or queries staged
-//   as f32).
+//   row owned by RowSplit<dh>::kThreads neighbouring threads, tiles of 32 keys
+//   or queries staged as f32).
 // * All take (batch, head, seq) strides with a contiguous last dim; the bf16
 //   kernels move 16 bytes per cp.async, so the wrapper checks 16-byte aligned
 //   pointers and strides.
@@ -69,7 +71,6 @@ constexpr int kBlockQ = 64;   // dq: query rows per block
 constexpr int kBlockK = 32;   // dq: keys per staged kv tile
 constexpr int kBlockKV = 64;  // dkdv: keys per block
 constexpr int kTileQ = 32;    // dkdv: query rows per staged q tile
-constexpr int kRuns = 8;      // runs of 4 elements a thread owns: 8 * 4 = 32
 
 struct Strides {
   long long b, h, s;
@@ -89,12 +90,13 @@ __device__ __forceinline__ bool allowed(const BwdArgs& a, int qpos, int kpos) {
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kBlockQ * (DH / 32))
+__global__ void __launch_bounds__(kBlockQ * RowSplit<DH>::kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ o, const T* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ delta,
                    T* __restrict__ dq, const BwdArgs a) {
-  constexpr int TPR = DH / 32;  // threads per query row
+  constexpr int TPR = RowSplit<DH>::kThreads;  // threads per query row
+  constexpr int kRuns = RowSplit<DH>::kRuns;   // runs of 4 elements a thread owns
   __shared__ __align__(16) float ks[kBlockK][DH];
   __shared__ __align__(16) float vs[kBlockK][DH];
 
@@ -184,12 +186,13 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kBlockKV * (DH / 32))
+__global__ void __launch_bounds__(kBlockKV * RowSplit<DH>::kThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      const BwdArgs a) {
-  constexpr int TPR = DH / 32;  // threads per key row
+  constexpr int TPR = RowSplit<DH>::kThreads;  // threads per key row
+  constexpr int kRuns = RowSplit<DH>::kRuns;
   __shared__ __align__(16) float qs[kTileQ][DH];
   __shared__ __align__(16) float dos[kTileQ][DH];
   __shared__ float ls[kTileQ], dls[kTileQ];
@@ -302,7 +305,7 @@ cudaError_t launch_dh(const void* const* ptrs, float* delta, int b, const BwdArg
   T* dq = static_cast<T*>(const_cast<void*>(ptrs[6]));
   T* dk = static_cast<T*>(const_cast<void*>(ptrs[7]));
   T* dv = static_cast<T*>(const_cast<void*>(ptrs[8]));
-  constexpr int TPR = DH / 32;
+  constexpr int TPR = RowSplit<DH>::kThreads;
   if (a.sq > 0) {  // the dkdv launch reads the D that this one writes
     const dim3 grid_q((a.sq + kBlockQ - 1) / kBlockQ, a.hq, b);
     attn_bwd_dq_kernel<T, DH><<<grid_q, kBlockQ * TPR, 0, stream>>>(q, k, v, o, dout, lse,
@@ -322,6 +325,7 @@ cudaError_t launch(const void* const* ptrs, float* delta, int b, int dh, const B
   switch (dh) {
     case 32: return launch_dh<T, 32>(ptrs, delta, b, a, stream);
     case 64: return launch_dh<T, 64>(ptrs, delta, b, a, stream);
+    case 80: return launch_dh<T, 80>(ptrs, delta, b, a, stream);
     case 128: return launch_dh<T, 128>(ptrs, delta, b, a, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -597,6 +601,7 @@ cudaError_t launch_bf16(const void* const* ptrs, float* delta, int b, int dh, co
   switch (dh) {
     case 32: return launch_bf16_dh<32>(ptrs, delta, b, a, stream);
     case 64: return launch_bf16_dh<64>(ptrs, delta, b, a, stream);
+    case 80: return launch_bf16_dh<80>(ptrs, delta, b, a, stream);
     case 128: return launch_bf16_dh<128>(ptrs, delta, b, a, stream);
     default: return cudaErrorInvalidValue;
   }

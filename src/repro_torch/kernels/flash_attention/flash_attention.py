@@ -23,7 +23,7 @@ import torch
 
 from .. import _build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 
 
 def aligned16(t: torch.Tensor) -> bool:

@@ -23,8 +23,8 @@ def _flat(a):
 def _on_card(what, device, tensors) -> None:
     if torch.is_grad_enabled() and any(a.requires_grad for a in tensors):
         raise NotImplementedError(
-            f"{what} has no backward kernel: training the ssm family on the card "
-            "waits for its slice (ROADMAP.md: ssm training, an ssd_scan backward)"
+            f"{what} has no backward kernel: training the ssm and hybrid families on the "
+            "card waits for ROADMAP.md B-3 (an ssd_scan backward) and A-7 (ssm training)"
         )
     if device.type != "cuda":
         raise ValueError(f"{what}: no implementation for device {device}")

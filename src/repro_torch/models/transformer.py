@@ -1,25 +1,37 @@
-"""Model assembly of the dense family (GQA attention + SwiGLU, optional QKV
-bias / sliding window / tied embeddings) and the ssm family (Mamba2 blocks
-only, attention-free).
+"""Model assembly of three families:
+
+  dense  -- GQA attention + SwiGLU, optional QKV bias / sliding window /
+            tied embeddings;
+  ssm    -- Mamba2 blocks only (attention-free);
+  hybrid -- zamba2-style: the Mamba2 stack with ONE shared (weight-tied)
+            attention + MLP block applied after every ``attn_every`` of its
+            layers.
 
 Port of ``src/repro/models/transformer.py``.  Parameters are a plain dict:
-``embed`` (vocab, d), ``final_norm``, optional ``head`` (d, vocab), and
+``embed`` (vocab, d), ``final_norm``, optional ``head`` (d, vocab),
 ``layers``, a list with one dict per layer (the JAX package stacks layers on
-a leading axis and scans them; here the scan is a Python loop).  The serve
-path (``prefill``, ``decode_step``, ``generate``) runs under
+a leading axis and scans them; here the scan is a Python loop), and for the
+hybrid ``shared_attn``, the one block's weights.  The serve path
+(``prefill``, ``decode_step``, ``generate``) runs under
 ``torch.inference_mode`` and updates the cache in place: a KV cache for the
-dense family, the SSM state and conv buffer for the ssm family.
+dense family; the SSM state and conv buffer for the ssm family; both for the
+hybrid, whose KV cache holds one slot per call of the shared block.
 
 Every entry point takes ``plain=False``; ``plain=True`` runs the plain
 PyTorch versions of the kernels on any device.  ``forward``, ``token_nll``
-and ``loss_fn`` run under autograd: on the card, the kernels' backward
-kernels differentiate them (the dense family; the ``ssd_scan`` kernel has no
-backward, so the ssm family trains on the CPU only for now).
+and ``loss_fn`` run under autograd, each layer body under activation
+checkpointing as ``cfg.remat`` / ``cfg.remat_policy`` ask (``_remat``).  On
+the card, the kernels' backward kernels differentiate them (the dense
+family; the ``ssd_scan`` kernel has no backward, so the ssm and hybrid
+families train on the CPU only for now).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as ckpt
 
 from . import ssm as ssm_mod
 from .config import ModelConfig
@@ -40,12 +52,28 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
+# families of the JAX package the port does not run yet -> ROADMAP item
+_UNPORTED_FAMILIES = {"moe": "A-5", "vlm": "A-6", "audio": "A-6"}
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.frontend != "none":
+    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.frontend != "none":
+        item = _UNPORTED_FAMILIES.get(cfg.family, "A-6")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet; "
-            f"see ROADMAP.md A-8"
+            f"see ROADMAP.md {item}"
         )
+
+
+def _shared_every(cfg: ModelConfig) -> int:
+    """The hybrid's group size: its shared block runs after every that many
+    Mamba2 layers; 0 where no shared block runs (the ssm family, or a hybrid
+    with ``attn_every`` 0, which the JAX package runs as a plain ssm stack)."""
+    k = cfg.attn_every if cfg.family == "hybrid" else 0
+    if k and cfg.num_layers % k:
+        raise ValueError(f"{cfg.name}: num_layers {cfg.num_layers} is not a multiple of "
+                         f"attn_every {k}, so the layers do not split into groups")
+    return k
 
 
 # ---------------------------------------------------------------------------
@@ -71,25 +99,29 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
             torch.randn((cfg.d_model, cfg.vocab_size), generator=gen, device=device)
             * cfg.d_model ** -0.5
         ).to(dtype)
-    if cfg.family == "ssm":
-        params["layers"] = [
-            {
-                "norm1": rmsnorm_init(cfg.d_model, dtype, device),
-                "ssm": ssm_mod.ssm_init(gen, cfg, dtype),
-            }
-            for _ in range(cfg.num_layers)
-        ]
+    if cfg.family == "dense":
+        params["layers"] = [_attn_block_init(gen, cfg, dtype) for _ in range(cfg.num_layers)]
         return params
     params["layers"] = [
         {
             "norm1": rmsnorm_init(cfg.d_model, dtype, device),
-            "attn": attention_init(gen, cfg, dtype),
-            "norm2": rmsnorm_init(cfg.d_model, dtype, device),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
+            "ssm": ssm_mod.ssm_init(gen, cfg, dtype),
         }
         for _ in range(cfg.num_layers)
     ]
+    if cfg.family == "hybrid":
+        params["shared_attn"] = _attn_block_init(gen, cfg, dtype)
     return params
+
+
+def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+    """One attention + SwiGLU block: a dense layer, or the hybrid's shared block."""
+    return {
+        "norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
+        "attn": attention_init(gen, cfg, dtype),
+        "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -125,14 +157,60 @@ def _ssm_layer(lp, cfg, x, *, plain, return_cache=False):
     return x + out
 
 
+# the products whose outputs the "dots" policy keeps (``x @ w`` and the plain
+# attention's einsums reach these below autograd); everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS else \
+        ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """fn under activation checkpointing, as the JAX package's ``_remat``
+    wraps a layer body in ``jax.checkpoint``: nothing of its inside is kept
+    for the backward ("full"), or only its matrix products' outputs
+    ("dots", ``checkpoint_dots``), and the rest runs again in the backward.
+    ``remat=False`` or policy "none" keeps fn as it is, and so does a call
+    with gradients off (prefill and decode, which run under inference mode).
+    The layer bodies draw no random numbers, so no RNG state is kept."""
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
+                  if cfg.remat_policy == "dots" else ckpt.noop_context_fn)
+
+    def wrapped(*args, **kwargs):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kwargs)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                               context_fn=context_fn, **kwargs)
+
+    return wrapped
+
+
+def _stack_forward(params, cfg: ModelConfig, x, *, plain):
+    """The layer stack: dense layers, or Mamba2 layers with the hybrid's shared
+    block after each group of ``attn_every``."""
+    if cfg.family == "dense":
+        body = _remat(lambda lp, h: _layer(lp, cfg, h, plain=plain)[0], cfg)
+        for lp in params["layers"]:
+            x = body(lp, x)
+        return x
+    every = _shared_every(cfg)
+    ssm_body = _remat(lambda lp, h: _ssm_layer(lp, cfg, h, plain=plain), cfg)
+    attn_body = _remat(lambda lp, h: _layer(lp, cfg, h, plain=plain)[0], cfg)
+    for i, lp in enumerate(params["layers"]):
+        x = ssm_body(lp, x)
+        if every and (i + 1) % every == 0:
+            x = attn_body(params["shared_attn"], x)
+    return x
+
+
 def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
     """Full-sequence logits. Returns (logits (b, s, vocab), aux_loss)."""
-    x = embed_inputs(params, cfg, batch)
-    for lp in params["layers"]:
-        if cfg.family == "ssm":
-            x = _ssm_layer(lp, cfg, x, plain=plain)
-        else:
-            x, _, _ = _layer(lp, cfg, x, plain=plain)
+    x = _stack_forward(params, cfg, embed_inputs(params, cfg, batch), plain=plain)
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
     return x @ _head(params, cfg), torch.zeros((), device=x.device)
 
@@ -165,24 +243,31 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None, devi
 
     dense: KV cache k, v (L, b, hkv, max_seq, dh).  ssm: ``state`` (L, b, nh,
     hd, st) f32 and ``conv`` (L, b, 3, conv_dim) in the model dtype, whatever
-    ``max_seq``.
+    ``max_seq``.  hybrid: those two, and ``shared_k``, ``shared_v`` (G, b,
+    hkv, max_seq, dh), one slot for each of the G = L // attn_every calls of
+    the one shared block.  ``device="meta"`` gives shapes and dtypes only.
     """
     _check_family(cfg)
     dtype = dtype or torch_dtype(cfg)
-    if cfg.family == "ssm":
-        conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
-        L = cfg.num_layers
+    L, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
+    if cfg.family == "dense":
+        shape = (L, batch_size, hkv, max_seq, dh)
         return {
-            "state": torch.zeros((L, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
-                                  cfg.ssm_state), dtype=torch.float32, device=device),
-            "conv": torch.zeros((L, batch_size, ssm_mod.CONV_K - 1, conv_dim), dtype=dtype,
-                                device=device),
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
         }
-    shape = (cfg.num_layers, batch_size, cfg.num_kv_heads, max_seq, cfg.head_dim_)
-    return {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device),
+    conv_dim = cfg.ssm_d_inner + 2 * cfg.ssm_state
+    cache = {
+        "state": torch.zeros((L, batch_size, cfg.ssm_heads, cfg.ssm_head_dim,
+                              cfg.ssm_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros((L, batch_size, ssm_mod.CONV_K - 1, conv_dim), dtype=dtype,
+                            device=device),
     }
+    if cfg.family == "hybrid" and cfg.attn_every:
+        shape = (L // cfg.attn_every, batch_size, hkv, max_seq, dh)
+        cache["shared_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["shared_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
 
 
 @torch.inference_mode()
@@ -197,14 +282,21 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, *, plain: bool = Fals
     if s > max_seq:
         raise ValueError(f"prompt length {s} exceeds max_seq {max_seq}")
     cache = init_cache(cfg, b, max_seq, dtype=x.dtype, device=x.device)
-    for i, lp in enumerate(params["layers"]):
-        if cfg.family == "ssm":
+    if cfg.family == "dense":
+        for i, lp in enumerate(params["layers"]):
+            x, k, v = _layer(lp, cfg, x, plain=plain)
+            cache["k"][i, :, :, :s] = k
+            cache["v"][i, :, :, :s] = v
+    else:
+        every = _shared_every(cfg)
+        for i, lp in enumerate(params["layers"]):
             x, cache["state"][i], cache["conv"][i] = _ssm_layer(lp, cfg, x, plain=plain,
                                                                 return_cache=True)
-            continue
-        x, k, v = _layer(lp, cfg, x, plain=plain)
-        cache["k"][i, :, :, :s] = k
-        cache["v"][i, :, :, :s] = v
+            if every and (i + 1) % every == 0:
+                g = i // every
+                x, k, v = _layer(params["shared_attn"], cfg, x, plain=plain)
+                cache["shared_k"][g, :, :, :s] = k
+                cache["shared_v"][g, :, :, :s] = v
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
     return x @ _head(params, cfg), cache
 
@@ -218,22 +310,33 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos: int, *, plain: bool
     """
     _check_family(cfg)
     x = params["embed"][token]
-    if cfg.family == "ssm":
+    kv = ("k", "v") if cfg.family == "dense" else ("shared_k", "shared_v")
+    if kv[0] in cache and not 0 <= pos < cache[kv[0]].shape[3]:
+        raise ValueError(f"pos {pos} outside the cache's {cache[kv[0]].shape[3]} positions")
+    if cfg.family == "dense":
+        for i, lp in enumerate(params["layers"]):
+            x = _attn_decode_block(lp, cfg, x, cache["k"][i], cache["v"][i], pos, plain=plain)
+    else:
+        every = _shared_every(cfg)
         for i, lp in enumerate(params["layers"]):
             y, cache["state"][i], cache["conv"][i] = ssm_mod.ssm_decode_step(
                 lp["ssm"], rmsnorm_apply(lp["norm1"], x, plain=plain), cache["state"][i],
                 cache["conv"][i], cfg, plain=plain)
             x = x + y
-    else:
-        if not 0 <= pos < cache["k"].shape[3]:
-            raise ValueError(f"pos {pos} outside the cache's {cache['k'].shape[3]} positions")
-        for i, lp in enumerate(params["layers"]):
-            h = attention_decode(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
-                                 cache["k"][i], cache["v"][i], pos, cfg)
-            x = x + h
-            x = x + mlp_apply(lp["mlp"], rmsnorm_apply(lp["norm2"], x, plain=plain))
+            if every and (i + 1) % every == 0:
+                g = i // every
+                x = _attn_decode_block(params["shared_attn"], cfg, x, cache["shared_k"][g],
+                                       cache["shared_v"][g], pos, plain=plain)
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
     return (x @ _head(params, cfg))[:, 0], cache
+
+
+def _attn_decode_block(lp, cfg, x, cache_k, cache_v, pos, *, plain):
+    """One attention + MLP block at one token, writing its k, v at ``pos`` of
+    ``cache_k`` / ``cache_v`` (b, hkv, max_seq, dh) in place."""
+    x = x + attention_decode(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
+                             cache_k, cache_v, pos, cfg)
+    return x + mlp_apply(lp["mlp"], rmsnorm_apply(lp["norm2"], x, plain=plain))
 
 
 @torch.inference_mode()

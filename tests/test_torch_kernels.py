@@ -126,6 +126,10 @@ ATTN_CASES = [
     (1, 2, 2, 200, 200, 64, False, 0, "float32"),    # ragged, non-causal
     (1, 4, 2, 128, 128, 64, True, 0, "bfloat16"),
     (1, 14, 2, 200, 200, 64, True, 0, "float32"),    # qwen2-0.5b's GQA grouping
+    # zamba2-2.7b's head dim 80 (hq = hkv), ragged, a window, bf16
+    *[(1, 4, 4, 256, 256, 80, causal, 0, "float32") for causal in (True, False)],
+    (1, 4, 2, 200, 200, 80, True, 64, "float32"),
+    (1, 4, 4, 128, 128, 80, True, 0, "bfloat16"),
 ]
 
 
@@ -306,6 +310,8 @@ GRAD_CASES = [  # b, hq, hkv, sq, sk, dh, causal, window: tests/test_kernels.py'
     (1, 4, 4, 384, 384, 128, True, 0),
     (1, 4, 2, 256, 256, 64, True, 96),
     (1, 14, 2, 200, 200, 64, True, 0),
+    (1, 4, 4, 256, 256, 80, True, 0),
+    (1, 4, 2, 200, 200, 80, False, 0),
 ]
 
 
@@ -342,6 +348,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ssd_kernel(x, dt, dt, bc, bc)
     assert (rn_kernel.launches, fa_kernel.launches, ssd_kernel.launches) == before
+
+
+def test_attention_wrappers_refuse_head_dims_the_kernels_do_not_take():
+    """Head dim 256 (paligemma-3b) is not built: both wrappers raise in
+    ``_check``, before any device check or launch, and nothing falls back."""
+    before = (fa_kernel.launches, fa_bwd.launches)
+    q, lse = torch.ones(1, 2, 8, 256), torch.ones(1, 2, 8)
+    with pytest.raises(ValueError, match=r"head_dim in \(32, 64, 80, 128\), got 256"):
+        fa_kernel(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_bwd(q, q, q, q, lse, q)
+    assert (fa_kernel.launches, fa_bwd.launches) == before
 
 
 def test_backward_and_combine_wrappers_refuse_cpu_tensors():
@@ -411,10 +429,13 @@ def test_rmsnorm_kernel_matches_plain(cuda_device, shape, dtype, gamma_dtype):
     torch.testing.assert_close(got.float(), rn_ref.rmsnorm(tx, tg).float(), rtol=tol, atol=tol)
 
 
-# bf16, the tensor-core kernels: head dims 32/64/128, ragged and single-row
+# bf16, the tensor-core kernels: head dims 32/64/80/128, ragged and single-row
 # queries, sq != sk, windows, GQA groups 1, 2, 7 and 8, non-causal
 ATTN_BF16_CASES = [
-    *[(2, 4, 2, 64, 64, dh, True, 0, "bfloat16") for dh in (32, 64, 128)],
+    *[(2, 4, 2, 64, 64, dh, True, 0, "bfloat16") for dh in (32, 64, 80, 128)],
+    *[(2, 4, 4, sq, sq, 80, True, 0, "bfloat16") for sq in (1, 33, 500)],
+    (2, 8, 2, 200, 77, 80, False, 0, "bfloat16"),
+    (1, 4, 4, 256, 256, 80, True, 96, "bfloat16"),
     *[(2, 14, 2, sq, sq, 64, True, 0, "bfloat16") for sq in (1, 33, 64, 500)],
     (1, 8, 1, 100, 300, 64, False, 0, "bfloat16"),
     (1, 8, 1, 300, 100, 32, True, 0, "bfloat16"),
@@ -429,7 +450,9 @@ ATTN_BF16_CASES = [
 @pytest.mark.parametrize(
     "b,hq,hkv,sq,sk,dh,causal,window,dtype",
     ATTN_CASES + ATTN_BF16_CASES + [(8, 14, 2, 500, 500, 64, True, 0, "bfloat16"),
+                                    (8, 32, 32, 500, 500, 80, True, 0, "bfloat16"),
                                     (2, 14, 2, 33, 33, 64, True, 0, "float32"),
+                                    (2, 4, 4, 33, 33, 80, True, 0, "float32"),
                                     (2, 8, 2, 1, 70, 32, False, 0, "float32")],
 )
 @pytest.mark.parametrize("strided", [False, True])
@@ -457,6 +480,8 @@ VALID_K_CASES = [
     (2, 7, 1, 300, 180, 128, 0, 150, "bfloat16"),
     (1, 4, 2, 300, 300, 64, 32, 100, "bfloat16"),
     (1, 4, 2, 300, 300, 32, 32, 100, "float32"),
+    (1, 4, 4, 256, 256, 80, 0, 200, "float32"),
+    (1, 4, 2, 300, 300, 80, 32, 100, "bfloat16"),
 ]
 
 
@@ -520,7 +545,9 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype, gamma_dtype
 @pytest.mark.parametrize(
     "b,hq,hkv,sq,sk,dh,causal,window,dtype",
     ATTN_CASES + ATTN_BF16_CASES + [(128, 14, 2, 64, 64, 64, True, 0, "bfloat16"),
+                  (2, 32, 32, 500, 500, 80, True, 0, "bfloat16"),
                   (2, 14, 2, 33, 33, 64, True, 0, "float32"),
+                  (2, 4, 4, 33, 33, 80, True, 0, "float32"),
                   (2, 8, 2, 1, 70, 32, False, 0, "float32")],
 )
 @pytest.mark.parametrize("strided", [False, True])

@@ -379,7 +379,7 @@ def test_ssd_op_refuses_a_gradient_off_the_cpu():
     x = torch.empty(1, 2, 16, 2, 8, device="meta", requires_grad=True)
     dt = torch.empty(1, 2, 16, 2, device="meta")
     Bm = torch.empty(1, 2, 16, 4, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md B-3 .* A-7"):
         ssd_ops.ssd_intra_chunk(x, dt, dt, Bm, Bm)
     with pytest.raises(ValueError, match="no implementation"):
         ssd_ops.ssd_intra_chunk(x.detach(), dt, dt, Bm, Bm)
@@ -389,11 +389,11 @@ def test_ssd_op_refuses_a_gradient_off_the_cpu():
 
 
 def test_other_families_name_their_roadmap_item():
-    cfg = tcfgs.get_smoke(ARCH).replace(family="hybrid", attn_every=2)
-    with pytest.raises(NotImplementedError, match="hybrid family .* ROADMAP.md A-8"):
+    cfg = tcfgs.get_smoke(ARCH).replace(family="moe")
+    with pytest.raises(NotImplementedError, match="moe family .* ROADMAP.md A-5"):
         tm.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.init_cache(cfg.replace(family="moe"), 1, 8)
+    with pytest.raises(NotImplementedError, match="vlm family .* ROADMAP.md A-6"):
+        tm.init_cache(cfg.replace(family="vlm", frontend="vision_stub"), 1, 8)
 
 
 # -- on the card -----------------------------------------------------------------
