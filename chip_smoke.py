@@ -20,7 +20,10 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       f32 (CUDA cores) and bf16 (tensor cores), the bf16 edges
                       of ``ATTN_BF16_EDGES``; at head dim 80 (zamba2-2.7b's
                       shared attention) its served strided layout and the
-                      edges again, in f32 and bf16;
+                      edges again, in f32 and bf16; at head dim 128 the moe
+                      slice's served layouts (qwen2-moe-a2.7b's prefill, and
+                      mixtral-8x22b's 4,608-token prompt under its window of
+                      4,096), in f32 and bf16;
   5. gc_coding     -- the coded-combine kernel against its plain version;
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
      attention-bwd    at the training shapes, in f32 and bf16, and attention's
@@ -65,6 +68,19 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       ``ssd_scan`` (0 intra) and 127 x 32 = 4,064 rmsnorm
                       launches around the served request; f32 teacher-forced
                       logits through the kernels and through ``plain=True``;
+  9c. slice-moe    -- the same for full-width qwen2-moe-a2.7b (24 layers of MHA
+                      attention at head dim 128 and 60 routed top-4 + 4 shared
+                      experts): exactly 24 attention and 1,568 rmsnorm launches
+                      a request, the moe layers' device time as categories of
+                      their own; and for mixtral-8x22b at full width with its
+                      depth cut to 2 of 56 layers, one 4,608-token prompt past
+                      its 4,096 window and 8 tokens: 2 attention and 40
+                      rmsnorm launches, the (token, expert) pairs each layer
+                      dropped (groups of 512 keep 160 an expert).  The f32
+                      logits check pins the plain path's experts to the
+                      kernel path's, then runs the plain path unpinned: each
+                      routing that differs with no difference upstream must
+                      be a near tie (K-th-place gap within 1e-4);
  10. train-demo    -- ``train_demo()`` (the multi-model coded MLP training of
                       ``launch/train.py --demo``) for gc, sr-sgc, m-sgc and
                       uncoded: every decoded gradient against the full-batch
@@ -122,8 +138,9 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       time the card could take (published H100 peaks), achieved
                       rates and share of that bound; attention in bf16 and f32
                       at the prefill's and the coded step's shapes, with SDPA
-                      (or its autograd) and each kernel's ptxas line, and at
-                      head dim 80 at zamba2-2.7b's prefill shape; both
+                      (or its autograd) and each kernel's ptxas line, at
+                      head dim 80 at zamba2-2.7b's prefill shape, and its
+                      forward at qwen2-moe-a2.7b's (8, 16, 500, 128); both
                       ssd_scan entries, the fused one beside the torch passes
                       it replaces; both gate-window kernels also at (4096, 3,
                       256), each beside a one-element fill_ (the launch floor)
@@ -159,6 +176,14 @@ ARCH = "qwen2-0.5b"
 DENSE_ARCHS = (ARCH, "llama3.2-1b")   # [slice] serves both
 SSM_ARCH = "mamba2-1.3b"
 HYBRID_ARCH = "zamba2-2.7b"
+MOE_ARCH = "qwen2-moe-a2.7b"
+# mixtral-8x22b at full width with its depth cut to 2 of 56 layers (281 GB of
+# bf16 weights at 56), one prompt longer than its window of 4,096: groups of
+# 512 tokens keep at most 160 (token, expert) pairs an expert (moe_groups)
+MIXTRAL = dict(arch="mixtral-8x22b", layers=2, batch=1, prompt=4608, new_tokens=8)
+# a routing that differs between the kernel and plain paths with no earlier
+# difference upstream must be a near tie: its K-th minus (K+1)-th probability
+ROUTE_GAP_TOL = 1e-4
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 500, 32
 MAX_SEQ = PROMPT_LEN + NEW_TOKENS
 LOGIT_TOL = 2e-3          # tests/test_prefill.py's prefill/decode tolerance
@@ -183,6 +208,10 @@ ATTN_BF16_EDGES = [
 # v (8, 32, 500, 80) views of the (8, 500, 32, 80) projections, causal
 ATTN_DH80_CASES = list(dict.fromkeys(c[:5] + (80,) + c[6:] for c in ATTN_BF16_EDGES))
 ATTN_DH80_SERVED = (BATCH, 32, 32, PROMPT_LEN, PROMPT_LEN, 80, True, 0, None)
+# the moe slice's served attention at head dim 128: qwen2-moe-a2.7b's MHA 16/16
+# prefill, and mixtral-8x22b's GQA 48/8 prompt under its window of 4,096
+ATTN_DH128_SERVED = (BATCH, 16, 16, PROMPT_LEN, PROMPT_LEN, 128, True, 0, None)
+ATTN_MIXTRAL_SERVED = (1, 48, 8, MIXTRAL["prompt"], MIXTRAL["prompt"], 128, True, 4096, None)
 GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}         # tests/test_kernels.py
 SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}        # tests/test_ssd_kernel.py
 # f32 gradients, kernels against plain autograd: sums over thousands of rows
@@ -407,8 +436,11 @@ def main() -> None:
             fail(f"{phase} {name}: kernel disagrees with the plain version")
         return err
 
-    # 3. rmsnorm kernel vs plain
-    for rows, d in [(BATCH * PROMPT_LEN, 896), (BATCH, 896), (130, 640), (1, 8192)]:
+    # 3. rmsnorm kernel vs plain, at every width a serving slice runs it (the
+    # moe slice's prefill and decode rows too) and a few others
+    for rows, d in [(BATCH * PROMPT_LEN, 896), (BATCH, 896), (130, 640), (1, 8192),
+                    (BATCH * PROMPT_LEN, 2048), (BATCH, 2048),
+                    (MIXTRAL["batch"] * MIXTRAL["prompt"], 6144), (MIXTRAL["batch"], 6144)]:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn(rows, d, dtype=dtype)
             for gdtype in sorted({torch.float32, dtype}, key=str):
@@ -445,6 +477,8 @@ def main() -> None:
     cases += [c + (torch.bfloat16, True) for c in ATTN_BF16_EDGES]
     cases += [c + (dtype, True) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES)
               for dtype in (torch.float32, torch.bfloat16)]
+    cases += [c + (dtype, True) for c in (ATTN_DH128_SERVED, ATTN_MIXTRAL_SERVED)
+              for dtype in (torch.float32, torch.bfloat16)]
     for b, hq, hkv, sq, sk, dh, causal, window, valid_k, dtype, strided in cases:
         if strided:
             q, k, v = (heads_view(b, hq, sq, dh, dtype), heads_view(b, hkv, sk, dh, dtype),
@@ -460,7 +494,7 @@ def main() -> None:
             ATTN_TOL[str(dtype).split(".")[1]],
         )
         if (b, sq, dtype) == (BATCH, PROMPT_LEN, torch.bfloat16):
-            errs["flash_attention" if dh == 64 else "flash_attention dh80"] = err
+            errs["flash_attention" if dh == 64 else f"flash_attention dh{dh}"] = err
     torch.cuda.synchronize()
 
     cfg = get_config(ARCH)
@@ -562,6 +596,22 @@ def main() -> None:
         {"flash_attention": G, "ssd_chunk_scan": L, "ssd_intra_chunk": 0,
          "rmsnorm": (2 * L + 2 * G + 1) * NEW_TOKENS})
 
+    # 9c. slice-moe: full-width qwen2-moe-a2.7b, and mixtral-8x22b at full width
+    # cut to 2 layers, its prompt past the 4,096 window; per forward 2 norms a
+    # layer and the final norm
+    L = get_config(MOE_ARCH).num_layers
+    moe_counters = {"flash_attention": fa_kernel, "rmsnorm": rn_kernel}
+    moe_launches = _serve_slice("slice-moe", dev, get_config(MOE_ARCH), gen, moe_counters,
+                                {"flash_attention": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
+    mcfg = get_config(MIXTRAL["arch"])
+    say("slice-moe", f"{mcfg.name}: depth cut from {mcfg.num_layers} to {MIXTRAL['layers']} "
+                     f"layers ({mcfg.param_count()} params at full depth); widths as published")
+    L = MIXTRAL["layers"]
+    _serve_slice("slice-moe", dev, mcfg.replace(num_layers=L), gen, moe_counters,
+                 {"flash_attention": L, "rmsnorm": (2 * L + 1) * MIXTRAL["new_tokens"]},
+                 batch=MIXTRAL["batch"], prompt_len=MIXTRAL["prompt"],
+                 new_tokens=MIXTRAL["new_tokens"])
+
     # 10. train-demo: the multi-model coded MLP training of launch/train.py --demo
     launches["coded_combine"] = _train_demo(dev)
 
@@ -607,6 +657,11 @@ def main() -> None:
         row["launches_of"] = f"[slice-hybrid] ({HYBRID_ARCH} serving)"
         row["max_abs_err"] = errs[f"{row['name']} dh80"]
         rows.append(row)
+    row = _attention_dh128_timing(heads_view, ptxas)
+    row["launches"] = moe_launches["flash_attention"]
+    row["launches_of"] = f"[slice-moe] ({MOE_ARCH} serving)"
+    row["max_abs_err"] = errs["flash_attention dh128"]
+    rows.append(row)
     rows += _training_timings(dev, cfg, randn, ptxas)
     rows += _gate_window_timings(dev)
     rows += _ssd_timing(dev)
@@ -681,7 +736,7 @@ def _rmsnorm_bwd_check(dev, cfg, randn, compare) -> float:
                 randn(TRAIN_ROWS, cfg.d_model, dtype=torch.bfloat16))
     calls, seen = 20, []
     for _ in range(3):
-        names = [name for name, _ in
+        names = [name for name, _, _ in
                  _device_events(lambda: [rmsnorm_bwd(x, g, dy) for _ in range(calls)])]
         kernels = sum("rmsnorm_bwd" in name for name in names)
         seen.append(kernels)
@@ -849,7 +904,7 @@ def _remat_turns(cfg, tr, step, args) -> None:
         fn(*args)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        busy = sum(t for _, t in _device_events(lambda: fn(*args))) / 1e3
+        busy = sum(t for _, t, _ in _device_events(lambda: fn(*args))) / 1e3
         got[label].append((busy, torch.cuda.max_memory_allocated()))
     say("train-full", "gc step with its layer bodies rematerialised and without, in turns: "
                       + "; ".join(f"{k}: device busy {[round(b, 3) for b, _ in v]} ms, "
@@ -1026,6 +1081,32 @@ def _attention_dh80_timings(heads_view, ptxas) -> list:
     return rows
 
 
+def _attention_dh128_timing(heads_view, ptxas) -> dict:
+    """The attention forward at qwen2-moe-a2.7b's prefill, q, k, v (8, 16,
+    500, 128) strided, causal, bf16, beside its plain version, SDPA and the
+    bound (q, k, v and o once each: bytes bind).  Returns the JSON row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
+
+    b, hq, hkv, s, _, dh = ATTN_DH128_SERVED[:6]
+    q = heads_view(b, hq, s, dh, torch.bfloat16)
+    k, v = (heads_view(b, hkv, s, dh, torch.bfloat16) for _ in range(2))
+    row = _timed(
+        "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:45", tuple(q.shape),
+        lambda: flash_attention(q, k, v, causal=True),
+        lambda: fa_ref.attention(q, k, v, causal=True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        sum(t.numel() * t.element_size() for t in (q, k, v, q)),
+        4 * dh * b * hq * s * (s + 1) // 2, "bf16_tensor", iters=50)
+    _say_attention(row, "forward bf16 at head dim 128", ptxas, f"attn_fwd_bf16_kernel<{dh}>")
+    torch.cuda.empty_cache()
+    return row
+
+
 def _say_attention(row, what, ptxas, *labels) -> None:
     built = "; ".join(f"{label}: {ptxas.get(label, 'not in the build log')}" for label in labels)
     say("timings", f"{what} {row['shape']}: kernel {row['ms']:.5f} ms, {_rates(row)} "
@@ -1189,7 +1270,8 @@ def _rmsnorm_bwd_turn(src: str = str(ROOT / "src")) -> None:
                 rmsnorm_bwd(x, g, dy)
             calls = 200
             per: dict[str, list] = {}
-            for name, us in _device_events(lambda: [rmsnorm_bwd(x, g, dy) for _ in range(calls)]):
+            for name, us, _ in _device_events(lambda: [rmsnorm_bwd(x, g, dy)
+                                                       for _ in range(calls)]):
                 per.setdefault(kernel_label(name), []).append(us)
             total = sum(sum(v) for v in per.values()) / calls
             launches = "; ".join(f"{k}: {len(v)} recorded, mean {statistics.mean(v):.3f} us, "
@@ -1389,7 +1471,7 @@ def _sim(dev) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = _device_events(lambda: simulate_batch(spec, traces, alpha=SIM["alpha"],
                                                    device=dev))
-    busy_ms = sum(t for _, t in events) / 1e3
+    busy_ms = sum(t for _, t, _ in events) / 1e3
     _breakdown(f"profile sim m-sgc selective, {SIM['rounds']} rounds", events, wall_ms)
     say("profile sim m-sgc selective", f"per round: device busy {busy_ms / SIM['rounds']:.4f} ms "
                                        f"of {wall_ms / SIM['rounds']:.4f} ms wall, "
@@ -1702,8 +1784,8 @@ def _gate_window_timings(dev) -> list:
             # kernel in turns, told apart by name
             events = _device_events(lambda fn=fn, x=x: [(one.fill_(1.0), fn(x, 2))
                                                         for _ in range(500)])
-            kern = [t for e, t in events if "stats_kernel" in e]
-            fill = [t for e, t in events if "stats_kernel" not in e]
+            kern = [t for e, t, _ in events if "stats_kernel" in e]
+            fill = [t for e, t, _ in events if "stats_kernel" not in e]
             floors += fill
             if not kern or not fill:
                 say("timings", f"FLAG {name} {tuple(x.shape)}: the profiler recorded {len(kern)} "
@@ -1858,80 +1940,187 @@ def _ssd_check(dev) -> dict:
     return worst
 
 
-def _serve_slice(phase, dev, cfg, gen, counters, want) -> dict:
+def _serve_slice(phase, dev, cfg, gen, counters, want, batch=BATCH, prompt_len=PROMPT_LEN,
+                 new_tokens=NEW_TOKENS) -> dict:
     """Full-width serving of ``cfg`` through ``serve()`` (random weights from
     seed 0): the launches of each kernel in ``counters`` (name -> wrapper)
     around one request, which must equal ``want``; prefill ms, decode tok/s and
-    peak memory; a profiled prefill and decode step; then float32
-    teacher-forced logits through the kernels and through ``plain=True``.
-    Returns the request's launches."""
+    peak memory; for a moe model, the pairs the same request drops, counted in
+    an untimed rerun under a route log; a profiled prefill and decode step (a
+    moe model's layers as categories of their own); then float32
+    teacher-forced logits through the kernels and through ``plain=True``
+    (:func:`_f32_logits_check`).  Returns the request's launches."""
     import torch
 
     from repro_torch.launch.serve import serve
     from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.layers import moe_groups, route_log
 
+    moe = cfg.family == "moe"
+    max_seq = prompt_len + new_tokens
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     say(phase, f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
                f"{cfg.param_count()} params in {cfg.dtype}")
-    serve(cfg, params, batch=BATCH, prompt_len=16, tokens=4, max_seq=32, device=dev)  # warm-up
+    serve(cfg, params, batch=batch, prompt_len=16, tokens=4, max_seq=32, device=dev)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
-    res = serve(cfg, params, batch=BATCH, prompt_len=PROMPT_LEN, tokens=NEW_TOKENS,
-                max_seq=MAX_SEQ, seed=0, device=dev)
+    res = serve(cfg, params, batch=batch, prompt_len=prompt_len, tokens=new_tokens,
+                max_seq=max_seq, seed=0, device=dev)
     launches = {name: c.launches for name, c in counters.items()}
     peak_mem = torch.cuda.max_memory_allocated()
     say(phase, f"launches {launches} (expected {want})")
     if launches != want:
         fail(f"{phase}: kernel launches {launches}, expected {want}")
     toks = res.tokens
-    if toks.shape != (BATCH, NEW_TOKENS) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
+    if toks.shape != (batch, new_tokens) or toks.min() < 0 or toks.max() >= cfg.vocab_size:
         fail(f"{phase}: bad tokens, shape {toks.shape}, range [{toks.min()}, {toks.max()}]")
-    say(phase, f"{cfg.dtype} serve: prefill {BATCH}x{PROMPT_LEN} in {res.prefill_s * 1e3:.3f} "
-               f"ms; {NEW_TOKENS - 1} decode steps at {res.decode_tokens_per_s:.1f} tok/s; "
+    say(phase, f"{cfg.dtype} serve: prefill {batch}x{prompt_len} in {res.prefill_s * 1e3:.3f} "
+               f"ms; {new_tokens - 1} decode steps at {res.decode_tokens_per_s:.1f} tok/s; "
                f"total {res.total_s * 1e3:.3f} ms; max_memory_allocated {peak_mem} B")
     say(phase, f"first sequence: {toks[0].tolist()}")
+    if moe:
+        # the same request again, untimed, under a route log (check-only work
+        # that serve() does not do for a user)
+        with route_log() as log:
+            serve(cfg, params, batch=batch, prompt_len=prompt_len, tokens=new_tokens,
+                  max_seq=max_seq, seed=0, device=dev)
+        L, drops = cfg.num_layers, log.drops()
+        if len(drops) != L * new_tokens:
+            fail(f"{phase}: {len(drops)} moe calls in the request, expected {L * new_tokens}")
+        Tg, Cg = moe_groups(batch * prompt_len, cfg)
+        say(phase, f"(token, expert) pairs dropped in groups of Tg {Tg} / Cg {Cg}"
+                   f"{' (dropless)' if Cg >= Tg else ''}: prefill {drops[:L]} of "
+                   f"{batch * prompt_len * cfg.num_experts_per_tok} a layer; decode steps "
+                   f"{sum(drops[L:])} in all")
+        del log
 
     # where the device time goes: one prefill and one decode step, profiled
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
                            device=dev, dtype=torch.int32)
-    _, cache = prefill(params, cfg, {"tokens": prompt}, max_seq=MAX_SEQ)
+    _, cache = prefill(params, cfg, {"tokens": prompt}, max_seq=max_seq)
+    span = "moe" if moe else None
     _breakdown(f"profile {cfg.name} prefill",
-               _device_events(lambda: prefill(params, cfg, {"tokens": prompt}, max_seq=MAX_SEQ)),
-               res.prefill_s * 1e3)
+               _device_events(lambda: prefill(params, cfg, {"tokens": prompt}, max_seq=max_seq),
+                              span), res.prefill_s * 1e3)
     token = prompt[:, -1:]
     _breakdown(f"profile {cfg.name} decode step",
-               _device_events(lambda: decode_step(params, cfg, cache, token, PROMPT_LEN)),
-               (res.total_s - res.prefill_s) / (NEW_TOKENS - 1) * 1e3)
+               _device_events(lambda: decode_step(params, cfg, cache, token, prompt_len), span),
+               (res.total_s - res.prefill_s) / (new_tokens - 1) * 1e3)
     del params, cache
     torch.cuda.empty_cache()
+    _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens)
+    return launches
 
-    # float32, teacher-forced on the kernel path's tokens: kernels vs plain
+
+def _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens) -> None:
+    """float32, teacher-forced on the kernel path's tokens: the prefill's and
+    every decode step's logits through the kernels and through ``plain=True``
+    within ``LOGIT_TOL``, and their final caches.  A moe model's plain path
+    takes the kernel path's experts, call by call (``route_log``): its ~1e-6
+    differences in attention and RMSNorm could tip a near tie at the K-th place
+    and move that token's output, and the later tokens', by O(1).  Then the
+    plain path runs again unpinned, and each routing that differs with no
+    earlier difference upstream (:func:`_routing_diffs`) must be a near tie,
+    its K-th-place gap within ``ROUTE_GAP_TOL``."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.layers import RouteLog, route_log
+
+    moe = cfg.family == "moe"
+    max_seq = prompt_len + new_tokens
     cfg32 = cfg.replace(dtype="float32")
     p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), generator=gen,
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
                            device=dev, dtype=torch.int32)
+    k_log = RouteLog()
+    p_log = RouteLog(replay=k_log)
+
+    def pinned(log):
+        return route_log(log) if moe else contextlib.nullcontext()
+
+    fed = []
     with torch.inference_mode():
-        k_logits, k_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=MAX_SEQ)
-        p_logits, p_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=MAX_SEQ, plain=True)
+        with pinned(k_log):
+            k_logits, k_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=max_seq)
+        with pinned(p_log):
+            p_logits, p_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=max_seq,
+                                        plain=True)
         worst = _logit_check("prefill", k_logits, p_logits, phase=phase)
         token = k_logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         del k_logits, p_logits
-        for i in range(NEW_TOKENS - 1):
-            k_logits, k_cache = decode_step(p32, cfg32, k_cache, token, PROMPT_LEN + i)
-            p_logits, p_cache = decode_step(p32, cfg32, p_cache, token, PROMPT_LEN + i,
-                                            plain=True)
+        for i in range(new_tokens - 1):
+            fed.append(token)
+            with pinned(k_log):
+                k_logits, k_cache = decode_step(p32, cfg32, k_cache, token, prompt_len + i)
+            with pinned(p_log):
+                p_logits, p_cache = decode_step(p32, cfg32, p_cache, token, prompt_len + i,
+                                                plain=True)
             worst = max(worst, _logit_check(f"decode {i}", k_logits, p_logits, quiet=True,
                                             phase=phase))
             token = k_logits.argmax(-1)[:, None].to(torch.int32)
         caches = max((k_cache[k] - p_cache[k]).abs().max().item() for k in k_cache)
-    say(phase, f"f32 teacher-forced logits, kernels vs plain: prefill and {NEW_TOKENS - 1} "
-               f"decode steps within {LOGIT_TOL:g} (max_abs_err {worst:.3e}); final caches "
-               f"differ by {caches:.3e}")
-    del p32, k_cache, p_cache
+    say(phase, f"f32 teacher-forced logits, kernels vs plain"
+               f"{' (routing pinned to the kernel path)' if moe else ''}: prefill and "
+               f"{new_tokens - 1} decode steps within {LOGIT_TOL:g} (max_abs_err {worst:.3e}); "
+               f"final caches differ by {caches:.3e}")
+    del k_cache, p_cache, p_log
     torch.cuda.empty_cache()
-    return launches
+    if moe:
+        # the plain path again, unpinned, fed the same tokens
+        with torch.inference_mode(), route_log() as free_log:
+            _, cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=max_seq, plain=True)
+            for i, token in enumerate(fed):
+                _, cache = decode_step(p32, cfg32, cache, token, prompt_len + i, plain=True)
+        del cache
+        n, differ, first, gap = _routing_diffs(k_log, free_log, cfg.num_layers, batch,
+                                               prompt_len)
+        say(phase, f"f32 plain path unpinned: {differ} of {n} (token, layer) routings chose "
+                   f"another expert set than the kernel path; {first} of them with no "
+                   f"earlier difference upstream, their largest K-th-place probability gap "
+                   f"{gap:.3e} (limit {ROUTE_GAP_TOL:g}); the rest follow from those")
+        if gap > ROUTE_GAP_TOL:
+            fail(f"{phase}: a routing differs between the kernel and plain paths at a "
+                 f"K-th-place gap of {gap:.3e}, not a near tie")
+    del p32
+    torch.cuda.empty_cache()
+
+
+def _routing_diffs(k_log, p_log, L, batch, prompt_len):
+    """Compare two runs' routing, call by call: the L calls of a prefill of
+    ``batch`` x ``prompt_len`` tokens, then L calls a decode step.  A (token,
+    layer) routing differs where the two expert sets differ.  A difference at
+    layer l and position t of a sequence moves that token's output, and
+    through attention every later layer's at positions >= t; so a difference
+    counts as *first* only where no earlier layer of its sequence differed at
+    a position <= t.  Returns (routings, differing, first, the kernel path's
+    largest K-th-place gap among the first)."""
+    import torch
+
+    never = prompt_len + len(k_log.calls)
+    first_pos = torch.full((batch, L), never)  # per sequence and layer: first difference
+    n = differ = first = 0
+    gap = 0.0
+    for c, ((k_idx, _, k_gap), (p_idx, _, _)) in enumerate(zip(k_log.calls, p_log.calls)):
+        step, layer = divmod(c, L)
+        rows = torch.arange(k_idx.shape[0])
+        if step == 0:
+            seq, pos = rows // prompt_len, rows % prompt_len
+        else:
+            seq, pos = rows, torch.full_like(rows, prompt_len + step - 1)
+        diff = (k_idx.sort(-1).values != p_idx.sort(-1).values).any(-1).cpu()
+        upstream = first_pos[:, :layer].amin(1) if layer else torch.full((batch,), never)
+        is_first = diff & (pos < upstream[seq])
+        n, differ, first = n + len(rows), differ + int(diff.sum()), first + int(is_first.sum())
+        if is_first.any():
+            gap = max(gap, float(k_gap.cpu()[is_first].max()))
+        for b in seq[diff].unique().tolist():
+            first_pos[b, layer] = min(int(first_pos[b, layer]), int(pos[diff & (seq == b)].min()))
+    return n, differ, first, gap
 
 
 def _profile_ssd_chunked(dev) -> dict:
@@ -2108,20 +2297,26 @@ SPINS = 16
 SPIN_COUNTS = {"sessions": 0, "lead": 0, "trail": 0}
 
 
-def _device_events(fn):
-    """(name, microseconds) of every device activity the profiler records in fn().
+def _device_events(fn, span=None):
+    """(name, microseconds, span) of every device activity the profiler records in fn().
 
     The profiler can lose the first or last device activities of a session
     (on the H100 a single call profiled alone came back empty, and 494 of 500
     calls were recorded), so fn runs between spin kernels that absorb the
     loss: SPINS before and after a 50 ms pause, and SPINS after fn.  The
-    spins are left out of the result and counted in ``SPIN_COUNTS``."""
+    spins are left out of the result and counted in ``SPIN_COUNTS``.  With
+    ``span``, host calls are traced too, and an activity launched inside a
+    profiler range of that name (``models/layers.py:_span``) has ``span`` as
+    its third field; every other activity has None there."""
+    import bisect
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if span else [])
+    with profile(activities=activities) as prof:
         for lead in range(2 * SPINS):
             torch.cuda._sleep(1000)
             if lead == SPINS - 1:
@@ -2130,15 +2325,27 @@ def _device_events(fn):
         for _ in range(SPINS):
             torch.cuda._sleep(1000)
         torch.cuda.synchronize()
-    events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
-                    for e in prof.events() if e.device_type == DeviceType.CUDA)
-    work = [(start, name, t) for start, name, t in events if "spin_kernel" not in name]
+    names = {}
+    if span:
+        # a device activity and the runtime call that issued it (cudaLaunchKernel,
+        # cudaMemcpyAsync, ...) share the CUPTI correlation id
+        cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+        ranges = sorted((e.time_range.start, e.time_range.end) for e in cpu if e.name == span)
+        starts = [r[0] for r in ranges]
+        for e in cpu:
+            if e.name.startswith("cu"):
+                i = bisect.bisect_right(starts, e.time_range.start) - 1
+                if i >= 0 and e.time_range.start <= ranges[i][1]:
+                    names[e.id] = span
+    events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us(), names.get(e.id))
+                    for e in prof.events() if e.device_type == DeviceType.CUDA and e.name != span)
+    work = [event for event in events if "spin_kernel" not in event[1]]
     first = work[0][0] if work else float("inf")
     SPIN_COUNTS["sessions"] += 1
-    for start, name, _ in events:
+    for start, name, _, _ in events:
         if "spin_kernel" in name:
             SPIN_COUNTS["lead" if start < first else "trail"] += 1
-    return [(name, t) for _, name, t in work]
+    return [(name, t, in_span) for _, name, t, in_span in work]
 
 
 def _device_ms(fn, iters: int) -> float | None:
@@ -2162,7 +2369,7 @@ def _profiled(fn, iters: int) -> dict:
         for _ in range(iters):
             fn()
 
-    each = [t for _, t in _device_events(run)]
+    each = [t for _, t, _ in _device_events(run)]
     calls = iters * min(1.0, len(each) / expected) if expected else iters
     ms = sum(each) / calls / 1e3 if sum(each) > 0 else None
     return {"ms": ms, "recorded": len(each), "expected": expected, "each_us": each}
@@ -2189,19 +2396,26 @@ def _category(name: str) -> str:
 
 
 def _breakdown(phase: str, events, wall_ms: float) -> None:
-    busy = sum(t for _, t in events) / 1e3
+    busy = sum(t for _, t, _ in events) / 1e3
     say(phase, f"device busy {busy:.3f} ms of {wall_ms:.3f} ms wall (idle share "
                f"{max(0.0, 1 - busy / wall_ms):.3f}); {len(events)} device activities")
     cats: dict[str, float] = {}
-    for name, t in events:
-        cats[_category(name)] = cats.get(_category(name), 0.0) + t / 1e3
+    spans: dict[str, list] = {}
+    names: dict[str, list] = {}  # the "other" category's activities, by name
+    for name, t, span in events:
+        cat = _category(name)
+        if span is None and cat.startswith("other"):
+            names.setdefault(name, []).append(t / 1e3)
+        if span is not None:
+            spans.setdefault(span, []).append(t / 1e3)
+            cat = f"{span} layers: {cat}"
+        cats[cat] = cats.get(cat, 0.0) + t / 1e3
     for cat, ms in sorted(cats.items(), key=lambda kv: -kv[1]):
         say(phase, f"  {cat}: {ms:.3f} ms ({ms / busy:.3f} of busy)")
+    for span, ts in spans.items():
+        say(phase, f"  {span} layers in all: {sum(ts):.3f} ms ({sum(ts) / busy:.3f} of busy) "
+                   f"in {len(ts)} device activities")
     # the largest single device activities, by name, of the "other" category
-    names: dict[str, list] = {}
-    for name, t in events:
-        if _category(name).startswith("other"):
-            names.setdefault(name, []).append(t / 1e3)
     for name, ts in sorted(names.items(), key=lambda kv: -sum(kv[1]))[:5]:
         say(phase, f"    {sum(ts):.3f} ms in {len(ts)} x {name[:90]}")
 

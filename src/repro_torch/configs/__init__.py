@@ -15,6 +15,8 @@ from .shapes import SHAPES, InputShape, input_specs, skip_reason
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen2-72b": "qwen2_72b",
     "qwen2-0.5b": "qwen2_0_5b",
     "zamba2-2.7b": "zamba2_2_7b",
@@ -24,8 +26,6 @@ _MODULES = {
 
 # architectures of the JAX package not yet runnable here -> ROADMAP item
 _UNPORTED = {
-    "mixtral-8x22b": "A-5 (MoE family)",
-    "qwen2-moe-a2.7b": "A-5 (MoE family)",
     "paligemma-3b": "A-6 (vlm family: its attention has head_dim 256, which the attention "
                     "kernels do not take)",
     "hubert-xlarge": "A-6 (audio family)",

@@ -6,8 +6,9 @@ Each converter takes a JAX package pytree converted to numpy arrays
 * ``params_from_jax``: a model's parameters.  Both packages keep dense
   weights as (d_in, d_out) applied as ``x @ w``, so no weight is
   transposed; the stacked ``layers`` arrays (L, ...) are split into one
-  dict per layer, the hybrid's ``shared_attn`` (one block, not stacked)
-  stays one dict, and a tied head stays ``embed.T``.  Leaves are cast to the
+  dict per layer (a moe layer's ``moe`` with its nested ``shared`` experts
+  included), the hybrid's ``shared_attn`` (one block, not stacked) stays one
+  dict, and a tied head stays ``embed.T``.  Leaves are cast to the
   model dtype, but for those the JAX package keeps in f32 whatever the model
   dtype (the ssm block's ``A_log``, ``D`` and ``dt_bias``).
 * ``mlp_params_from_jax``: the coded-training driver's ``MLPModel``

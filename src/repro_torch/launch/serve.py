@@ -1,6 +1,6 @@
 """Serving launcher: batched greedy decode with a decode cache (a KV cache for
-the dense family, the SSM state and conv buffer for the ssm family, both for
-the hybrid).
+the dense and moe families, the SSM state and conv buffer for the ssm family,
+both for the hybrid).
 
 Prefill a prompt batch, then decode greedily for N steps.  Runs on the card
 unless ``--device cpu`` is given; with no card it raises rather than fall
@@ -13,9 +13,13 @@ back.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b --full --batch 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b --full --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --full --batch 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b --device cpu
 
 ``--arch`` takes every registered architecture; at full width qwen2-72b and
-deepseek-67b (about 140 GB of bf16 weights) do not fit one 80 GB card.
+deepseek-67b (about 140 GB of bf16 weights) and mixtral-8x22b (281 GB) do not
+fit one 80 GB card.
 """
 
 from __future__ import annotations

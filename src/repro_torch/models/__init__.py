@@ -1,4 +1,4 @@
-"""Models of the port: the dense and ssm families so far."""
+"""Models of the port: the dense, moe, ssm and hybrid families."""
 
 from .config import ModelConfig
 from .transformer import (

@@ -1,7 +1,7 @@
 """Model configuration: a field-for-field copy of the JAX package's
 ``ModelConfig``, so that a config of either package compares equal with its
-twin.  The port runs the dense and ssm families so far; the other fields are
-kept so that configs stay comparable."""
+twin.  The port runs the dense, moe, ssm and hybrid families; the other
+fields are kept so that configs stay comparable."""
 
 from __future__ import annotations
 

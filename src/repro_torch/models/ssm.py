@@ -16,15 +16,13 @@ package.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
-from .layers import dense_init, rmsnorm_apply, rmsnorm_init
+from .layers import _span, dense_init, rmsnorm_apply, rmsnorm_init
 
 #: parameters kept in f32 whatever the model dtype (``src/repro/models/ssm.py:36-38``)
 F32_PARAMS = ("A_log", "D", "dt_bias")
@@ -47,15 +45,6 @@ def ssm_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
         "norm": rmsnorm_init(di, dtype, dev),
         "out_proj": dense_init(gen, di, d, dtype),
     }
-
-
-def _span(name: str):
-    """A profiler range named ``name`` around one pass of the chunked scan
-    (chip_smoke.py's ``[profile ssd_chunked]`` reads them); a null context,
-    which records nothing, when no profiler runs."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def _causal_conv(x, w, b):

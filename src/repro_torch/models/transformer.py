@@ -1,7 +1,10 @@
-"""Model assembly of three families:
+"""Model assembly of four families:
 
   dense  -- GQA attention + SwiGLU, optional QKV bias / sliding window /
             tied embeddings;
+  moe    -- the dense family's attention + a grouped top-K mixture of experts
+            (optionally with shared experts) in place of the SwiGLU, whose
+            load-balance aux loss ``forward`` sums over the layers;
   ssm    -- Mamba2 blocks only (attention-free);
   hybrid -- zamba2-style: the Mamba2 stack with ONE shared (weight-tied)
             attention + MLP block applied after every ``attn_every`` of its
@@ -14,16 +17,17 @@ a leading axis and scans them; here the scan is a Python loop), and for the
 hybrid ``shared_attn``, the one block's weights.  The serve path
 (``prefill``, ``decode_step``, ``generate``) runs under
 ``torch.inference_mode`` and updates the cache in place: a KV cache for the
-dense family; the SSM state and conv buffer for the ssm family; both for the
-hybrid, whose KV cache holds one slot per call of the shared block.
+dense and moe families; the SSM state and conv buffer for the ssm family;
+both for the hybrid, whose KV cache holds one slot per call of the shared
+block.
 
 Every entry point takes ``plain=False``; ``plain=True`` runs the plain
 PyTorch versions of the kernels on any device.  ``forward``, ``token_nll``
 and ``loss_fn`` run under autograd, each layer body under activation
 checkpointing as ``cfg.remat`` / ``cfg.remat_policy`` ask (``_remat``).  On
 the card, the kernels' backward kernels differentiate them (the dense
-family; the ``ssd_scan`` kernel has no backward, so the ssm and hybrid
-families train on the CPU only for now).
+and moe families; the ``ssd_scan`` kernel has no backward, so the ssm and
+hybrid families train on the CPU only for now).
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ from .layers import (
     attention_init,
     mlp_apply,
     mlp_init,
+    moe_apply,
+    moe_init,
     rmsnorm_apply,
     rmsnorm_init,
 )
@@ -53,11 +59,13 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 # families of the JAX package the port does not run yet -> ROADMAP item
-_UNPORTED_FAMILIES = {"moe": "A-5", "vlm": "A-6", "audio": "A-6"}
+_UNPORTED_FAMILIES = {"vlm": "A-6", "audio": "A-6"}
+# families whose every layer is an attention block
+_ATTN_FAMILIES = ("dense", "moe")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "ssm", "hybrid") or cfg.frontend != "none":
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend != "none":
         item = _UNPORTED_FAMILIES.get(cfg.family, "A-6")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet; "
@@ -99,7 +107,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
             torch.randn((cfg.d_model, cfg.vocab_size), generator=gen, device=device)
             * cfg.d_model ** -0.5
         ).to(dtype)
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         params["layers"] = [_attn_block_init(gen, cfg, dtype) for _ in range(cfg.num_layers)]
         return params
     params["layers"] = [
@@ -115,13 +123,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
 
 
 def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
-    """One attention + SwiGLU block: a dense layer, or the hybrid's shared block."""
-    return {
+    """One attention block: a dense layer or the hybrid's shared block, with a
+    SwiGLU MLP, or a moe layer, with ``moe`` in its place."""
+    p = {
         "norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
         "attn": attention_init(gen, cfg, dtype),
         "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, cfg, dtype)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -139,12 +152,20 @@ def _head(params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
+def _ffn(lp, cfg, x):
+    """The block's feed-forward on x: (out, aux), aux None for the SwiGLU MLP."""
+    if cfg.family == "moe":
+        return moe_apply(lp["moe"], x, cfg)
+    return mlp_apply(lp["mlp"], x), None
+
+
 def _layer(lp, cfg, x, *, plain):
+    """One attention block: (x, aux, k, v)."""
     h, (k, v) = attention_apply(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
                                 cfg, plain=plain)
     x = x + h
-    x = x + mlp_apply(lp["mlp"], rmsnorm_apply(lp["norm2"], x, plain=plain))
-    return x, k, v
+    h, aux = _ffn(lp, cfg, rmsnorm_apply(lp["norm2"], x, plain=plain))
+    return x + h, aux, k, v
 
 
 def _ssm_layer(lp, cfg, x, *, plain, return_cache=False):
@@ -191,13 +212,17 @@ def _remat(fn, cfg: ModelConfig):
 
 
 def _stack_forward(params, cfg: ModelConfig, x, *, plain):
-    """The layer stack: dense layers, or Mamba2 layers with the hybrid's shared
-    block after each group of ``attn_every``."""
-    if cfg.family == "dense":
-        body = _remat(lambda lp, h: _layer(lp, cfg, h, plain=plain)[0], cfg)
+    """The layer stack: attention blocks, or Mamba2 layers with the hybrid's
+    shared block after each group of ``attn_every``.  Returns (x, the sum of
+    the moe layers' aux losses, or None)."""
+    if cfg.family in _ATTN_FAMILIES:
+        body = _remat(lambda lp, h: _layer(lp, cfg, h, plain=plain)[:2], cfg)
+        total = None
         for lp in params["layers"]:
-            x = body(lp, x)
-        return x
+            x, aux = body(lp, x)
+            if aux is not None:
+                total = aux if total is None else total + aux
+        return x, total
     every = _shared_every(cfg)
     ssm_body = _remat(lambda lp, h: _ssm_layer(lp, cfg, h, plain=plain), cfg)
     attn_body = _remat(lambda lp, h: _layer(lp, cfg, h, plain=plain)[0], cfg)
@@ -205,14 +230,14 @@ def _stack_forward(params, cfg: ModelConfig, x, *, plain):
         x = ssm_body(lp, x)
         if every and (i + 1) % every == 0:
             x = attn_body(params["shared_attn"], x)
-    return x
+    return x, None
 
 
 def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
     """Full-sequence logits. Returns (logits (b, s, vocab), aux_loss)."""
-    x = _stack_forward(params, cfg, embed_inputs(params, cfg, batch), plain=plain)
+    x, aux = _stack_forward(params, cfg, embed_inputs(params, cfg, batch), plain=plain)
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
-    return x @ _head(params, cfg), torch.zeros((), device=x.device)
+    return x @ _head(params, cfg), torch.zeros((), device=x.device) if aux is None else aux
 
 
 def token_nll(params, cfg: ModelConfig, batch, *, plain: bool = False):
@@ -241,16 +266,16 @@ def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None, device=None):
     """The decode cache, stacked on a leading layer axis.
 
-    dense: KV cache k, v (L, b, hkv, max_seq, dh).  ssm: ``state`` (L, b, nh,
-    hd, st) f32 and ``conv`` (L, b, 3, conv_dim) in the model dtype, whatever
-    ``max_seq``.  hybrid: those two, and ``shared_k``, ``shared_v`` (G, b,
+    dense and moe: KV cache k, v (L, b, hkv, max_seq, dh).  ssm: ``state``
+    (L, b, nh, hd, st) f32 and ``conv`` (L, b, 3, conv_dim) in the model
+    dtype, whatever ``max_seq``.  hybrid: those two, and ``shared_k``, ``shared_v`` (G, b,
     hkv, max_seq, dh), one slot for each of the G = L // attn_every calls of
     the one shared block.  ``device="meta"`` gives shapes and dtypes only.
     """
     _check_family(cfg)
     dtype = dtype or torch_dtype(cfg)
     L, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         shape = (L, batch_size, hkv, max_seq, dh)
         return {
             "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -282,9 +307,9 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, *, plain: bool = Fals
     if s > max_seq:
         raise ValueError(f"prompt length {s} exceeds max_seq {max_seq}")
     cache = init_cache(cfg, b, max_seq, dtype=x.dtype, device=x.device)
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         for i, lp in enumerate(params["layers"]):
-            x, k, v = _layer(lp, cfg, x, plain=plain)
+            x, _, k, v = _layer(lp, cfg, x, plain=plain)
             cache["k"][i, :, :, :s] = k
             cache["v"][i, :, :, :s] = v
     else:
@@ -294,7 +319,7 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, *, plain: bool = Fals
                                                                 return_cache=True)
             if every and (i + 1) % every == 0:
                 g = i // every
-                x, k, v = _layer(params["shared_attn"], cfg, x, plain=plain)
+                x, _, k, v = _layer(params["shared_attn"], cfg, x, plain=plain)
                 cache["shared_k"][g, :, :, :s] = k
                 cache["shared_v"][g, :, :, :s] = v
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
@@ -310,10 +335,10 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos: int, *, plain: bool
     """
     _check_family(cfg)
     x = params["embed"][token]
-    kv = ("k", "v") if cfg.family == "dense" else ("shared_k", "shared_v")
+    kv = ("k", "v") if cfg.family in _ATTN_FAMILIES else ("shared_k", "shared_v")
     if kv[0] in cache and not 0 <= pos < cache[kv[0]].shape[3]:
         raise ValueError(f"pos {pos} outside the cache's {cache[kv[0]].shape[3]} positions")
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         for i, lp in enumerate(params["layers"]):
             x = _attn_decode_block(lp, cfg, x, cache["k"][i], cache["v"][i], pos, plain=plain)
     else:
@@ -332,11 +357,11 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos: int, *, plain: bool
 
 
 def _attn_decode_block(lp, cfg, x, cache_k, cache_v, pos, *, plain):
-    """One attention + MLP block at one token, writing its k, v at ``pos`` of
+    """One attention block at one token, writing its k, v at ``pos`` of
     ``cache_k`` / ``cache_v`` (b, hkv, max_seq, dh) in place."""
     x = x + attention_decode(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
                              cache_k, cache_v, pos, cfg)
-    return x + mlp_apply(lp["mlp"], rmsnorm_apply(lp["norm2"], x, plain=plain))
+    return x + _ffn(lp, cfg, rmsnorm_apply(lp["norm2"], x, plain=plain))[0]
 
 
 @torch.inference_mode()

@@ -71,7 +71,8 @@ def _close(got, want):
 def test_configs_equal_the_reference(ref):
     jcfgs = ref[2]
     assert set(tcfgs.ARCHS) == {ARCH, "mamba2-1.3b", "llama3.2-1b", "qwen2-72b",
-                                "deepseek-67b", "zamba2-2.7b"}
+                                "deepseek-67b", "zamba2-2.7b", "qwen2-moe-a2.7b",
+                                "mixtral-8x22b"}
     for arch in tcfgs.ARCHS:
         for get in ("get_config", "get_smoke"):
             j, t = getattr(jcfgs, get)(arch), getattr(tcfgs, get)(arch)
@@ -79,8 +80,8 @@ def test_configs_equal_the_reference(ref):
 
 
 def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A-5 .MoE family"):
-        tcfgs.get_config("mixtral-8x22b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A-6 .vlm family"):
+        tcfgs.get_config("paligemma-3b")
 
 
 def test_forward_matches_reference(ref, pair):
