@@ -7,10 +7,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
   1. device        -- card name, count, and nvidia-smi's name and power limit;
   2. build         -- nvcc builds every kernel from ``src/repro_torch/kernels/csrc``;
                       each kernel's ptxas registers, shared memory and spills;
-                      fails unless every bf16 attention (head dims 32, 64, 80
-                      and 128) and ssd_scan kernel's SASS holds HMMA
+                      fails unless every bf16 attention (head dims 32, 64, 80,
+                      128 and 256) and ssd_scan kernel's SASS holds HMMA
                       (tensor-core) instructions and none spills at head dim
-                      64, nor attention at 80, unless both gate-window
+                      64, nor attention at 80 or the forward at 256 (the f32
+                      forward's line at 256 is printed), unless both gate-window
                       kernels build unspilled in all four row buckets, and
                       unless all 24 RMSNorm backward kernels (four buckets of
                       warps a row and the chunked path, four dtype pairs)
@@ -23,7 +24,10 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       edges again, in f32 and bf16; at head dim 128 the moe
                       slice's served layouts (qwen2-moe-a2.7b's prefill, and
                       mixtral-8x22b's 4,608-token prompt under its window of
-                      4,096), in f32 and bf16;
+                      4,096), in f32 and bf16; at head dim 256 paligemma-3b's
+                      served MQA 8/1 prefill and the bf16 edges again, and
+                      hubert-xlarge's non-causal (8, 16, 500, 80), in f32 and
+                      bf16;
   5. gc_coding     -- the coded-combine kernel against its plain version;
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
      attention-bwd    at the training shapes, in f32 and bf16, and attention's
@@ -81,6 +85,18 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       kernel path's, then runs the plain path unpinned: each
                       routing that differs with no difference upstream must
                       be a near tie (K-th-place gap within 1e-4);
+  9d. slice-vlm    -- the same for full-width paligemma-3b (18 layers, MQA 8/1
+                      at head dim 256, a tied vocab of 257,216): 8 prompts of
+                      256 seeded patch embeddings (the stubbed vision tower's
+                      output) + 244 text tokens, 32 new tokens; exactly 18
+                      attention and 1,184 rmsnorm launches a request;
+  9e. slice-audio  -- full-width hubert-xlarge (48 non-causal encoder layers,
+                      head dim 80), whose path is ``forward``: 8 x 500 seeded
+                      frames (the stubbed feature extractor's output) under
+                      inference mode, exactly 48 attention and 97 rmsnorm
+                      launches, wall and device busy, peak memory, a profiled
+                      forward, and f32 logits through the kernels and through
+                      ``plain=True``;
  10. train-demo    -- ``train_demo()`` (the multi-model coded MLP training of
                       ``launch/train.py --demo``) for gc, sr-sgc, m-sgc and
                       uncoded: every decoded gradient against the full-batch
@@ -140,7 +156,10 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       at the prefill's and the coded step's shapes, with SDPA
                       (or its autograd) and each kernel's ptxas line, at
                       head dim 80 at zamba2-2.7b's prefill shape, and its
-                      forward at qwen2-moe-a2.7b's (8, 16, 500, 128); both
+                      forward at qwen2-moe-a2.7b's (8, 16, 500, 128), at
+                      paligemma-3b's (8, 8, 500, 256) with kv (8, 1, 500,
+                      256), causal, and hubert-xlarge's non-causal (8, 16,
+                      500, 80); both
                       ssd_scan entries, the fused one beside the torch passes
                       it replaces; both gate-window kernels also at (4096, 3,
                       256), each beside a one-element fill_ (the launch floor)
@@ -177,6 +196,8 @@ DENSE_ARCHS = (ARCH, "llama3.2-1b")   # [slice] serves both
 SSM_ARCH = "mamba2-1.3b"
 HYBRID_ARCH = "zamba2-2.7b"
 MOE_ARCH = "qwen2-moe-a2.7b"
+VLM_ARCH = "paligemma-3b"
+AUDIO_ARCH = "hubert-xlarge"
 # mixtral-8x22b at full width with its depth cut to 2 of 56 layers (281 GB of
 # bf16 weights at 56), one prompt longer than its window of 4,096: groups of
 # 512 tokens keep at most 160 (token, expert) pairs an expert (moe_groups)
@@ -212,6 +233,13 @@ ATTN_DH80_SERVED = (BATCH, 32, 32, PROMPT_LEN, PROMPT_LEN, 80, True, 0, None)
 # prefill, and mixtral-8x22b's GQA 48/8 prompt under its window of 4,096
 ATTN_DH128_SERVED = (BATCH, 16, 16, PROMPT_LEN, PROMPT_LEN, 128, True, 0, None)
 ATTN_MIXTRAL_SERVED = (1, 48, 8, MIXTRAL["prompt"], MIXTRAL["prompt"], 128, True, 4096, None)
+# paligemma-3b's prefill at head dim 256: MQA 8/1 over its 500 positions (256
+# patch embeddings and 244 text tokens), and the bf16 edges at 256; hubert-
+# xlarge's encoder: MHA 16/16 at head dim 80, non-causal, over 500 frames (10 s
+# of audio at its 20 ms frame rate)
+ATTN_DH256_SERVED = (BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, True, 0, None)
+ATTN_DH256_CASES = list(dict.fromkeys(c[:5] + (256,) + c[6:] for c in ATTN_BF16_EDGES))
+ATTN_AUDIO_SERVED = (BATCH, 16, 16, PROMPT_LEN, PROMPT_LEN, 80, False, 0, None)
 GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}         # tests/test_kernels.py
 SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}        # tests/test_ssd_kernel.py
 # f32 gradients, kernels against plain autograd: sums over thousands of rows
@@ -394,7 +422,7 @@ def main() -> None:
     attn = {label: n for label, n in sorted(hmma.items()) if label.startswith("attn_")}
     say("build", f"HMMA instructions in the SASS: {attn}")
     bf16_attn = [label for label in attn if "_bf16_kernel<" in label]
-    if len(bf16_attn) != 12 or not all(attn[label] for label in bf16_attn):
+    if len(bf16_attn) != 13 or not all(attn[label] for label in bf16_attn):
         fail(f"the bf16 attention kernels' SASS lacks tensor-core instructions: {attn}")
     # ... and so do both products of the bf16 SSD chunk scan
     ssd = {label: n for label, n in sorted(hmma.items()) if label.startswith("ssd_")}
@@ -417,9 +445,12 @@ def main() -> None:
     for label in (*[f"{k}<{dh}>" for dh in (64, 80) for k in (
                       "attn_fwd_bf16_kernel", "attn_bwd_dq_bf16_kernel",
                       "attn_bwd_dkdv_bf16_kernel")],
+                  "attn_fwd_bf16_kernel<256>",
                   *[label for label in bf16_ssd if ", 64, " in label]):
         if "0 bytes spill stores, 0 bytes spill loads" not in ptxas.get(label, ""):
             fail(f"{label} spills at its model's head dim: {ptxas.get(label)}")
+    for label in ("attn_fwd_bf16_kernel<256>", "attn_fwd_kernel<float, 256>"):
+        say("build", f"head dim 256: {label}: {ptxas.get(label)}; HMMA {hmma.get(label)}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -437,10 +468,12 @@ def main() -> None:
         return err
 
     # 3. rmsnorm kernel vs plain, at every width a serving slice runs it (the
-    # moe slice's prefill and decode rows too) and a few others
+    # moe slice's prefill and decode rows too, and hubert-xlarge's forward) and
+    # a few others
     for rows, d in [(BATCH * PROMPT_LEN, 896), (BATCH, 896), (130, 640), (1, 8192),
                     (BATCH * PROMPT_LEN, 2048), (BATCH, 2048),
-                    (MIXTRAL["batch"] * MIXTRAL["prompt"], 6144), (MIXTRAL["batch"], 6144)]:
+                    (MIXTRAL["batch"] * MIXTRAL["prompt"], 6144), (MIXTRAL["batch"], 6144),
+                    (BATCH * PROMPT_LEN, 1280)]:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn(rows, d, dtype=dtype)
             for gdtype in sorted({torch.float32, dtype}, key=str):
@@ -477,7 +510,9 @@ def main() -> None:
     cases += [c + (torch.bfloat16, True) for c in ATTN_BF16_EDGES]
     cases += [c + (dtype, True) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES)
               for dtype in (torch.float32, torch.bfloat16)]
-    cases += [c + (dtype, True) for c in (ATTN_DH128_SERVED, ATTN_MIXTRAL_SERVED)
+    cases += [c + (dtype, True) for c in (ATTN_DH128_SERVED, ATTN_MIXTRAL_SERVED,
+                                          ATTN_DH256_SERVED, *ATTN_DH256_CASES,
+                                          ATTN_AUDIO_SERVED)
               for dtype in (torch.float32, torch.bfloat16)]
     for b, hq, hkv, sq, sk, dh, causal, window, valid_k, dtype, strided in cases:
         if strided:
@@ -494,7 +529,7 @@ def main() -> None:
             ATTN_TOL[str(dtype).split(".")[1]],
         )
         if (b, sq, dtype) == (BATCH, PROMPT_LEN, torch.bfloat16):
-            errs["flash_attention" if dh == 64 else f"flash_attention dh{dh}"] = err
+            errs[_attn_err_key(dh, causal)] = err
     torch.cuda.synchronize()
 
     cfg = get_config(ARCH)
@@ -563,7 +598,7 @@ def main() -> None:
     # port's entry point (the JSON line's launches are qwen2-0.5b's)
     for arch in DENSE_ARCHS:
         L = get_config(arch).num_layers
-        got = _serve_slice("slice", dev, get_config(arch), gen,
+        got = _serve_slice("slice", dev, get_config(arch),
                            {"flash_attention": fa_kernel, "rmsnorm": rn_kernel},
                            {"flash_attention": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
         if arch == ARCH:
@@ -575,7 +610,7 @@ def main() -> None:
     # one fused chunk-scan launch a block, none of the intra entry; the
     # ssd_scan row counts both entries of ssd_scan.cu (one kernel template)
     ssm_launches = _serve_slice(
-        "slice-ssm", dev, scfg, gen,
+        "slice-ssm", dev, scfg,
         {"ssd_chunk_scan": scan_kernel, "ssd_intra_chunk": ssd_kernel, "rmsnorm": rn_kernel},
         {"ssd_chunk_scan": L, "ssd_intra_chunk": 0, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
     launches["ssd_chunk_scan"] = ssm_launches["ssd_chunk_scan"]
@@ -590,7 +625,7 @@ def main() -> None:
     hcfg = get_config(HYBRID_ARCH)
     L, G = hcfg.num_layers, hcfg.num_layers // hcfg.attn_every
     hybrid_launches = _serve_slice(
-        "slice-hybrid", dev, hcfg, gen,
+        "slice-hybrid", dev, hcfg,
         {"flash_attention": fa_kernel, "ssd_chunk_scan": scan_kernel,
          "ssd_intra_chunk": ssd_kernel, "rmsnorm": rn_kernel},
         {"flash_attention": G, "ssd_chunk_scan": L, "ssd_intra_chunk": 0,
@@ -601,16 +636,30 @@ def main() -> None:
     # layer and the final norm
     L = get_config(MOE_ARCH).num_layers
     moe_counters = {"flash_attention": fa_kernel, "rmsnorm": rn_kernel}
-    moe_launches = _serve_slice("slice-moe", dev, get_config(MOE_ARCH), gen, moe_counters,
+    moe_launches = _serve_slice("slice-moe", dev, get_config(MOE_ARCH), moe_counters,
                                 {"flash_attention": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
     mcfg = get_config(MIXTRAL["arch"])
     say("slice-moe", f"{mcfg.name}: depth cut from {mcfg.num_layers} to {MIXTRAL['layers']} "
                      f"layers ({mcfg.param_count()} params at full depth); widths as published")
     L = MIXTRAL["layers"]
-    _serve_slice("slice-moe", dev, mcfg.replace(num_layers=L), gen, moe_counters,
+    _serve_slice("slice-moe", dev, mcfg.replace(num_layers=L), moe_counters,
                  {"flash_attention": L, "rmsnorm": (2 * L + 1) * MIXTRAL["new_tokens"]},
                  batch=MIXTRAL["batch"], prompt_len=MIXTRAL["prompt"],
                  new_tokens=MIXTRAL["new_tokens"])
+
+    # 9d. slice-vlm: full-width paligemma-3b, attention at head dim 256 over
+    # 256 patch embeddings and 244 text tokens; per forward 2 norms a layer
+    # and the final norm
+    L = get_config(VLM_ARCH).num_layers
+    vlm_launches = _serve_slice("slice-vlm", dev, get_config(VLM_ARCH),
+                                {"flash_attention": fa_kernel, "rmsnorm": rn_kernel},
+                                {"flash_attention": L, "rmsnorm": (2 * L + 1) * NEW_TOKENS})
+
+    # 9e. slice-audio: full-width hubert-xlarge's non-causal encoder forward
+    L = get_config(AUDIO_ARCH).num_layers
+    audio_launches = _audio_slice("slice-audio", dev, get_config(AUDIO_ARCH), gen,
+                                  {"flash_attention": fa_kernel, "rmsnorm": rn_kernel},
+                                  {"flash_attention": L, "rmsnorm": 2 * L + 1})
 
     # 10. train-demo: the multi-model coded MLP training of launch/train.py --demo
     launches["coded_combine"] = _train_demo(dev)
@@ -657,11 +706,15 @@ def main() -> None:
         row["launches_of"] = f"[slice-hybrid] ({HYBRID_ARCH} serving)"
         row["max_abs_err"] = errs[f"{row['name']} dh80"]
         rows.append(row)
-    row = _attention_dh128_timing(heads_view, ptxas)
-    row["launches"] = moe_launches["flash_attention"]
-    row["launches_of"] = f"[slice-moe] ({MOE_ARCH} serving)"
-    row["max_abs_err"] = errs["flash_attention dh128"]
-    rows.append(row)
+    for served, got, of in ((ATTN_DH128_SERVED, moe_launches, f"[slice-moe] ({MOE_ARCH} serving)"),
+                            (ATTN_DH256_SERVED, vlm_launches, f"[slice-vlm] ({VLM_ARCH} serving)"),
+                            (ATTN_AUDIO_SERVED, audio_launches,
+                             f"[slice-audio] ({AUDIO_ARCH} forward)")):
+        row = _attention_served_timing(served, heads_view, ptxas)
+        row["launches"] = got["flash_attention"]
+        row["launches_of"] = of
+        row["max_abs_err"] = errs[_attn_err_key(served[5], served[6])]
+        rows.append(row)
     rows += _training_timings(dev, cfg, randn, ptxas)
     rows += _gate_window_timings(dev)
     rows += _ssd_timing(dev)
@@ -1081,30 +1134,40 @@ def _attention_dh80_timings(heads_view, ptxas) -> list:
     return rows
 
 
-def _attention_dh128_timing(heads_view, ptxas) -> dict:
-    """The attention forward at qwen2-moe-a2.7b's prefill, q, k, v (8, 16,
-    500, 128) strided, causal, bf16, beside its plain version, SDPA and the
-    bound (q, k, v and o once each: bytes bind).  Returns the JSON row."""
+def _attention_served_timing(served, heads_view, ptxas) -> dict:
+    """The bf16 attention forward at a served shape (``ATTN_DH128_SERVED``,
+    ``ATTN_DH256_SERVED``, ``ATTN_AUDIO_SERVED``: q, k, v strided, causal or
+    not as served) beside its plain version, SDPA and the bound (q, k, v and
+    o once each; the products over the causal half or every pair).  Returns
+    the JSON row."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 
-    b, hq, hkv, s, _, dh = ATTN_DH128_SERVED[:6]
+    b, hq, hkv, s, _, dh, causal = served[:7]
     q = heads_view(b, hq, s, dh, torch.bfloat16)
     k, v = (heads_view(b, hkv, s, dh, torch.bfloat16) for _ in range(2))
+    pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
     row = _timed(
         "flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:45", tuple(q.shape),
-        lambda: flash_attention(q, k, v, causal=True),
-        lambda: fa_ref.attention(q, k, v, causal=True),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-        sum(t.numel() * t.element_size() for t in (q, k, v, q)),
-        4 * dh * b * hq * s * (s + 1) // 2, "bf16_tensor", iters=50)
-    _say_attention(row, "forward bf16 at head dim 128", ptxas, f"attn_fwd_bf16_kernel<{dh}>")
+        lambda: flash_attention(q, k, v, causal=causal),
+        lambda: fa_ref.attention(q, k, v, causal=causal),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True),
+        sum(t.numel() * t.element_size() for t in (q, k, v, q)), 4 * dh * pairs,
+        "bf16_tensor", iters=50)
+    _say_attention(row, f"forward bf16 at head dim {dh}, kv {tuple(k.shape)}, causal {causal}",
+                   ptxas, f"attn_fwd_bf16_kernel<{dh}>")
     torch.cuda.empty_cache()
     return row
+
+
+def _attn_err_key(dh: int, causal: bool) -> str:
+    """The ``errs`` key of the bf16 attention forward at a served shape."""
+    key = "flash_attention" if dh == 64 else f"flash_attention dh{dh}"
+    return key if causal else f"{key} noncausal"
 
 
 def _say_attention(row, what, ptxas, *labels) -> None:
@@ -1940,7 +2003,7 @@ def _ssd_check(dev) -> dict:
     return worst
 
 
-def _serve_slice(phase, dev, cfg, gen, counters, want, batch=BATCH, prompt_len=PROMPT_LEN,
+def _serve_slice(phase, dev, cfg, counters, want, batch=BATCH, prompt_len=PROMPT_LEN,
                  new_tokens=NEW_TOKENS) -> dict:
     """Full-width serving of ``cfg`` through ``serve()`` (random weights from
     seed 0): the launches of each kernel in ``counters`` (name -> wrapper)
@@ -1952,7 +2015,7 @@ def _serve_slice(phase, dev, cfg, gen, counters, want, batch=BATCH, prompt_len=P
     (:func:`_f32_logits_check`).  Returns the request's launches."""
     import torch
 
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import request, serve
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.models.layers import moe_groups, route_log
 
@@ -1961,7 +2024,9 @@ def _serve_slice(phase, dev, cfg, gen, counters, want, batch=BATCH, prompt_len=P
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     say(phase, f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
                f"{cfg.param_count()} params in {cfg.dtype}")
-    serve(cfg, params, batch=batch, prompt_len=16, tokens=4, max_seq=32, device=dev)  # warm-up
+    warm = 16 + cfg.prefix_len
+    serve(cfg, params, batch=batch, prompt_len=warm, tokens=4, max_seq=warm + 16,
+          device=dev)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -1997,24 +2062,23 @@ def _serve_slice(phase, dev, cfg, gen, counters, want, batch=BATCH, prompt_len=P
         del log
 
     # where the device time goes: one prefill and one decode step, profiled
-    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
-                           device=dev, dtype=torch.int32)
-    _, cache = prefill(params, cfg, {"tokens": prompt}, max_seq=max_seq)
+    prompt = request(cfg, batch=batch, prompt_len=prompt_len, seed=1, device=dev)
+    _, cache = prefill(params, cfg, prompt, max_seq=max_seq)
     span = "moe" if moe else None
     _breakdown(f"profile {cfg.name} prefill",
-               _device_events(lambda: prefill(params, cfg, {"tokens": prompt}, max_seq=max_seq),
-                              span), res.prefill_s * 1e3)
-    token = prompt[:, -1:]
+               _device_events(lambda: prefill(params, cfg, prompt, max_seq=max_seq), span),
+               res.prefill_s * 1e3)
+    token = prompt["tokens"][:, -1:]
     _breakdown(f"profile {cfg.name} decode step",
                _device_events(lambda: decode_step(params, cfg, cache, token, prompt_len), span),
                (res.total_s - res.prefill_s) / (new_tokens - 1) * 1e3)
     del params, cache
     torch.cuda.empty_cache()
-    _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens)
+    _f32_logits_check(phase, dev, cfg, batch, prompt_len, new_tokens)
     return launches
 
 
-def _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens) -> None:
+def _f32_logits_check(phase, dev, cfg, batch, prompt_len, new_tokens) -> None:
     """float32, teacher-forced on the kernel path's tokens: the prefill's and
     every decode step's logits through the kernels and through ``plain=True``
     within ``LOGIT_TOL``, and their final caches.  A moe model's plain path
@@ -2028,6 +2092,7 @@ def _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens) -> No
 
     import torch
 
+    from repro_torch.launch.serve import request
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.models.layers import RouteLog, route_log
 
@@ -2035,8 +2100,7 @@ def _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens) -> No
     max_seq = prompt_len + new_tokens
     cfg32 = cfg.replace(dtype="float32")
     p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
-    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen,
-                           device=dev, dtype=torch.int32)
+    prompt = request(cfg, batch=batch, prompt_len=prompt_len, seed=2, device=dev)
     k_log = RouteLog()
     p_log = RouteLog(replay=k_log)
 
@@ -2046,10 +2110,9 @@ def _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens) -> No
     fed = []
     with torch.inference_mode():
         with pinned(k_log):
-            k_logits, k_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=max_seq)
+            k_logits, k_cache = prefill(p32, cfg32, prompt, max_seq=max_seq)
         with pinned(p_log):
-            p_logits, p_cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=max_seq,
-                                        plain=True)
+            p_logits, p_cache = prefill(p32, cfg32, prompt, max_seq=max_seq, plain=True)
         worst = _logit_check("prefill", k_logits, p_logits, phase=phase)
         token = k_logits[:, -1].argmax(-1)[:, None].to(torch.int32)
         del k_logits, p_logits
@@ -2073,7 +2136,7 @@ def _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens) -> No
     if moe:
         # the plain path again, unpinned, fed the same tokens
         with torch.inference_mode(), route_log() as free_log:
-            _, cache = prefill(p32, cfg32, {"tokens": prompt}, max_seq=max_seq, plain=True)
+            _, cache = prefill(p32, cfg32, prompt, max_seq=max_seq, plain=True)
             for i, token in enumerate(fed):
                 _, cache = decode_step(p32, cfg32, cache, token, prompt_len + i, plain=True)
         del cache
@@ -2088,6 +2151,65 @@ def _f32_logits_check(phase, dev, cfg, gen, batch, prompt_len, new_tokens) -> No
                  f"K-th-place gap of {gap:.3e}, not a near tie")
     del p32
     torch.cuda.empty_cache()
+
+
+def _audio_slice(phase, dev, cfg, gen, counters, want) -> dict:
+    """Full-width encoder forward of ``cfg`` (random weights from seed 0) on
+    BATCH x PROMPT_LEN seeded frames, under inference mode, bf16: the
+    launches of each kernel in ``counters`` around one forward, which must
+    equal ``want``; wall (the median of five forwards after a warm-up at the
+    same shape), peak memory; a profiled forward; then float32 logits through
+    the kernels and through ``plain=True`` within ``LOGIT_TOL``.  Returns the
+    forward's launches."""
+    import torch
+
+    from repro_torch.models import forward, init_params
+
+    def infer(params, c, frames, plain=False):
+        with torch.inference_mode():
+            return forward(params, c, {"frames": frames}, plain=plain)[0]
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    say(phase, f"{cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+               f"{cfg.param_count()} params in {cfg.dtype}, causal {cfg.causal}")
+    frames = torch.randn((BATCH, PROMPT_LEN, cfg.d_model), generator=gen, device=dev)
+    infer(params, cfg, frames)  # warm-up at the timed shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed():
+        t0 = time.perf_counter()
+        out = infer(params, cfg, frames)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for c in counters.values():
+        c.launches = 0
+    logits, first = timed()
+    launches = {name: c.launches for name, c in counters.items()}
+    walls = [first] + [timed()[1] for _ in range(4)]
+    wall = statistics.median(walls)
+    peak_mem = torch.cuda.max_memory_allocated()
+    say(phase, f"launches {launches} (expected {want})")
+    if launches != want:
+        fail(f"{phase}: kernel launches {launches}, expected {want}")
+    if logits.shape != (BATCH, PROMPT_LEN, cfg.vocab_size) or not torch.isfinite(logits).all():
+        fail(f"{phase}: bad logits, shape {tuple(logits.shape)}")
+    say(phase, f"{cfg.dtype} forward of {BATCH}x{PROMPT_LEN} frames in {wall * 1e3:.3f} ms "
+               f"(median of {[round(w * 1e3, 3) for w in walls]}); "
+               f"max_memory_allocated {peak_mem} B")
+    _breakdown(f"profile {cfg.name} forward", _device_events(lambda: infer(params, cfg, frames)),
+               wall * 1e3)
+    del params, logits
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
+    err = _logit_check("forward", infer(p32, cfg32, frames), infer(p32, cfg32, frames, True),
+                       phase=phase)
+    say(phase, f"f32 logits, kernels vs plain: within {LOGIT_TOL:g} (max_abs_err {err:.3e})")
+    del p32
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _routing_diffs(k_log, p_log, L, batch, prompt_len):

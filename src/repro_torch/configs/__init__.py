@@ -1,9 +1,5 @@
-"""Registry of the architectures the port runs.
-
-The JAX package registers ten; the port lists only those whose family it
-runs.  Asking for another raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
-"""
+"""Registry of the architectures the port runs: the JAX package's ten, in
+its order."""
 
 from __future__ import annotations
 
@@ -18,27 +14,18 @@ _MODULES = {
     "mixtral-8x22b": "mixtral_8x22b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "qwen2-72b": "qwen2_72b",
+    "paligemma-3b": "paligemma_3b",
     "qwen2-0.5b": "qwen2_0_5b",
+    "hubert-xlarge": "hubert_xlarge",
     "zamba2-2.7b": "zamba2_2_7b",
     "mamba2-1.3b": "mamba2_1_3b",
     "deepseek-67b": "deepseek_67b",
-}
-
-# architectures of the JAX package not yet runnable here -> ROADMAP item
-_UNPORTED = {
-    "paligemma-3b": "A-6 (vlm family: its attention has head_dim 256, which the attention "
-                    "kernels do not take)",
-    "hubert-xlarge": "A-6 (audio family)",
 }
 
 ARCHS = list(_MODULES)
 
 
 def _mod(arch: str):
-    if arch in _UNPORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet; see ROADMAP.md {_UNPORTED[arch]}"
-        )
     if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; available: {ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")

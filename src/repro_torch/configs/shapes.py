@@ -48,8 +48,7 @@ def skip_reason(cfg: ModelConfig, shape: InputShape) -> str | None:
             "full quadratic attention; 500k decode requires a sub-quadratic "
             "path (SSM/hybrid recurrence or sliding window)"
         )
-    if shape.mode == "prefill" and cfg.frontend == "vision_stub" and \
-            shape.seq_len <= cfg.num_prefix_tokens:
+    if shape.mode == "prefill" and cfg.prefix_len and shape.seq_len <= cfg.prefix_len:
         return "sequence shorter than vision prefix"
     return None
 
@@ -74,8 +73,8 @@ def input_specs(cfg: ModelConfig, shape: InputShape | str) -> dict:
             batch = {"frames": _meta((b, s, cfg.d_model), dt),
                      "labels": _meta((b, s), torch.int32)}
         elif cfg.frontend == "vision_stub":
-            text = s - cfg.num_prefix_tokens
-            batch = {"prefix_embeds": _meta((b, cfg.num_prefix_tokens, cfg.d_model), dt),
+            text = s - cfg.prefix_len
+            batch = {"prefix_embeds": _meta((b, cfg.prefix_len, cfg.d_model), dt),
                      "tokens": _meta((b, text), torch.int32),
                      "labels": _meta((b, text), torch.int32)}
         else:

@@ -10,6 +10,10 @@
 // the coded training step's q (128, 14, 64, 64) with lse it moves 21.4 MB (6.4
 // us) for 1.0 GFLOP.  At zamba2-2.7b's shared attention (q, k, v (8, 32, 500,
 // 80), causal) it moves 81.9 MB (24.5 us) for 10.3 GFLOP (10.4 us): bytes again.
+// At paligemma-3b's prefill (q (8, 8, 500, 256), kv (8, 1, 500, 256), causal) it
+// moves 36.9 MB (11.0 us) for 8.2 GFLOP (8.3 us), and at hubert-xlarge's
+// non-causal encoder (q, k, v (8, 16, 500, 80)) 41.0 MB (12.2 us) for 10.2 GFLOP
+// (10.4 us): bytes bind both, the first only just.
 //
 // Two kernels, chosen by dtype:
 // * bf16 (attn_fwd_bf16_kernel), the served and trained dtype, on the tensor
@@ -31,6 +35,20 @@
 //     and the q tile take 46 KB at dh 64, 55 KB at dh 80 and 87 KB at dh 128
 //     (dynamic shared memory).  Rows are padded by 16 bytes, so ldmatrix has
 //     no bank conflicts.
+//   - Head dim 256 (paligemma-3b) does not fit that plan.  The O accumulator
+//     alone is 16 x 256 f32 a warp, 128 registers a thread; resident q
+//     fragments would add 64 (16 k-chunks x 4) and S over 64 keys 32, 224
+//     before addresses and softmax state, past what ptxas can hold unspilled,
+//     and the ring of 64-key tiles with the q tile would take 165 KB, one
+//     block an SM.  So at 256 (FwdPlan): the q fragments are read from the
+//     shared q tile at each use (ldmatrix, as the dh-128 backward does), and kv
+//     tiles are 32 keys, which halves S to 16 registers and the ring to 66 KB;
+//     with the 33 KB q tile a block takes 99 KB, so two blocks (8 warps) fit
+//     an SM.  O stays whole in each warp's registers: splitting its columns
+//     over two warps would compute S twice or pass P through shared memory.
+//     ptxas for sm_90a (chip_smoke.py [build], on an NVIDIA H100 80GB HBM3 at
+//     700 W): 244 registers, 0 bytes spilled, 128 HMMA instructions; no spill
+//     is a condition of that run.
 //   - S = Q.K^T by mma.sync with K read by ldmatrix; the online softmax runs in
 //     f32 on the accumulator fragments (row max and sum across the lane quad by
 //     two shuffles, exp2 with scale*log2(e) folded in).  P is rounded to bf16
@@ -48,9 +66,12 @@
 //     pays only where products dominate (long sequences, dh 128 at large batch).
 // * f32 (attn_fwd_kernel), the dtype of the logits checks, as the JAX kernel
 //   contracts f32 inputs in f32: f32 FMAs on the CUDA cores, kv tiles of 32
-//   keys staged as f32, a query row owned by a few neighbouring threads, each
-//   holding runs of 4 of its elements and meeting the others by shuffles
-//   (RowSplit in common.cuh: dh/32 threads of 32 elements, or 4 of 20 at dh 80).
+//   keys staged as f32 in dynamic shared memory (64 KB at dh 256, past the
+//   48 KB a static array may take), blocks of 64 query rows (32 at dh 256),
+//   a query row owned by a few neighbouring
+//   threads, each holding runs of 4 of its elements and meeting the others by
+//   shuffles (RowSplit in common.cuh: dh/32 threads of 32 elements, or 4 of 20
+//   at dh 80).
 //
 // Both take q, k, v and o through (batch, head, seq) strides with a contiguous
 // last dim, so callers pass head-transposed views without copies; q-head h reads
@@ -68,7 +89,10 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;  // query rows per block
+// query rows per block: 64, or 32 at dh 256, whose 8 threads a row would
+// otherwise make blocks of 512 threads, capped at 128 registers a thread
+template <int DH>
+constexpr int kBlockQ = DH <= 128 ? 64 : 32;
 constexpr int kBlockK = 32;  // keys per kv tile
 
 struct Strides {
@@ -82,13 +106,14 @@ struct AttnArgs {
 };
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kBlockQ * RowSplit<DH>::kThreads)
+__global__ void __launch_bounds__(kBlockQ<DH> * RowSplit<DH>::kThreads)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 T* __restrict__ o, float* __restrict__ lse, const AttnArgs a) {
   constexpr int TPR = RowSplit<DH>::kThreads;  // threads per query row
   constexpr int RUNS = RowSplit<DH>::kRuns;    // runs of 4 elements a thread owns
-  __shared__ __align__(16) float ks[kBlockK][DH];
-  __shared__ __align__(16) float vs[kBlockK][DH];
+  extern __shared__ __align__(16) float kv_smem[];
+  float (*ks)[DH] = reinterpret_cast<float (*)[DH]>(kv_smem);
+  float (*vs)[DH] = reinterpret_cast<float (*)[DH]>(kv_smem + kBlockK * DH);
 
   const int tid = threadIdx.x;
   const int sub = tid % TPR;
@@ -96,7 +121,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int h = blockIdx.y;
   const int bi = blockIdx.z;
   const int kh = h / (a.hq / a.hkv);
-  const int q0 = qt * kBlockQ;
+  const int q0 = qt * kBlockQ<DH>;
   const int qpos = q0 + tid / TPR;
   const bool row_ok = qpos < a.sq;
 
@@ -113,7 +138,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   float m = -INFINITY, l = 0.f;
 
   // kv tiles that can hold an unmasked key for some row of this q tile
-  const int q_last = min(q0 + kBlockQ, a.sq) - 1;
+  const int q_last = min(q0 + kBlockQ<DH>, a.sq) - 1;
   int kv_end = a.valid_k;
   if (a.causal) kv_end = min(kv_end, q_last + 1);
   int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
@@ -188,8 +213,12 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
 template <typename T, int DH>
 cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int b,
                       const AttnArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.sq + kBlockQ - 1) / kBlockQ, a.hq, b);
-  attn_fwd_kernel<T, DH><<<grid, kBlockQ * RowSplit<DH>::kThreads, 0, stream>>>(
+  constexpr int smem = 2 * kBlockK * DH * (int)sizeof(float);  // the K and V tiles
+  if (cudaError_t err = cudaFuncSetAttribute(
+          attn_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    return err;
+  const dim3 grid((a.sq + kBlockQ<DH> - 1) / kBlockQ<DH>, a.hq, b);
+  attn_fwd_kernel<T, DH><<<grid, kBlockQ<DH> * RowSplit<DH>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, a);
   return cudaGetLastError();
@@ -203,6 +232,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
     case 64: return launch_dh<T, 64>(q, k, v, o, lse, b, a, stream);
     case 80: return launch_dh<T, 80>(q, k, v, o, lse, b, a, stream);
     case 128: return launch_dh<T, 128>(q, k, v, o, lse, b, a, stream);
+    case 256: return launch_dh<T, 256>(q, k, v, o, lse, b, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -214,13 +244,17 @@ using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTileQ = 16 * kWarps;  // query rows per block, 16 a warp
-constexpr int kTileK = 64;           // keys per staged kv tile
 constexpr float kLog2e = 1.4426950408889634f;
 
+// Keys per staged kv tile, and whether a warp's q fragments stay in registers:
+// 64 and yes up to dh 128; 32 and no at 256, where O takes 128 registers.
 template <int DH>
-constexpr int bf16_smem_bytes() {  // the q tile and two stages of (K, V)
-  return (kTileQ + 2 * 2 * kTileK) * mma::Tile<DH>::kStride * (int)sizeof(bf16);
-}
+struct FwdPlan {
+  static constexpr int kTileK = DH <= 128 ? 64 : 32;
+  static constexpr bool kQResident = DH <= 128;
+  static constexpr int kSmemBytes =  // the q tile and two stages of (K, V)
+      (kTileQ + 2 * 2 * kTileK) * mma::Tile<DH>::kStride * (int)sizeof(bf16);
+};
 
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
@@ -228,6 +262,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
                      const AttnArgs a) {
   constexpr int S = mma::Tile<DH>::kStride;
+  constexpr int kTileK = FwdPlan<DH>::kTileK;
   constexpr int KC = DH / 16;     // k-chunks of a q.k product
   constexpr int NT = kTileK / 8;  // n-tiles of 8 keys
   extern __shared__ __align__(16) unsigned char smem[];
@@ -257,7 +292,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   mma::cp_async_commit();
   mma::cp_async_wait<1>();  // the q tile has landed; the first kv tile may not have
   __syncthreads();
-  mma::AFrags<DH, true> qf;
+  mma::AFrags<DH, FwdPlan<DH>::kQResident> qf;
   qf.init(qs + warp * 16 * S, lane);
 
   // this thread's two rows (g and g + 8 of the warp's 16): running max of the
@@ -353,7 +388,7 @@ attn_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DH>
 cudaError_t launch_bf16_dh(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
                            int b, const AttnArgs& a, cudaStream_t stream) {
-  constexpr int smem = bf16_smem_bytes<DH>();
+  constexpr int smem = FwdPlan<DH>::kSmemBytes;
   if (cudaError_t err = cudaFuncSetAttribute(
           attn_fwd_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
     return err;
@@ -375,6 +410,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
     case 64: return launch_bf16_dh<64>(qt, kt, vt, ot, lse, b, a, stream);
     case 80: return launch_bf16_dh<80>(qt, kt, vt, ot, lse, b, a, stream);
     case 128: return launch_bf16_dh<128>(qt, kt, vt, ot, lse, b, a, stream);
+    case 256: return launch_bf16_dh<256>(qt, kt, vt, ot, lse, b, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -21,7 +21,8 @@ namespace mma {
 
 // Shared-memory tiles hold rows of DH bf16 padded by 8 elements (16 bytes):
 // the 8 rows that one ldmatrix phase reads then start 4 banks apart (DH 32, 64,
-// 128) or at banks 0, 12, 24, 4, 16, 28, 8, 20 (DH 80, rows of 44 words), so
+// 128, and 256 with rows of 132 words) or at banks 0, 12, 24, 4, 16, 28, 8, 20
+// (DH 80, rows of 44 words), so
 // the phase's 16-byte reads touch all 32 banks once; and every row start stays
 // 16-byte aligned for cp.async.  DH must be a multiple of 16 (whole k-chunks).
 template <int DH>

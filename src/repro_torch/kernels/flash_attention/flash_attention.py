@@ -23,7 +23,17 @@ import torch
 
 from .. import _build
 
-HEAD_DIMS = (32, 64, 80, 128)
+# head dims each direction is built for; the backward's at 256 is ROADMAP B-2b
+HEAD_DIMS = (32, 64, 80, 128, 256)
+BWD_HEAD_DIMS = (32, 64, 80, 128)
+
+
+def check_bwd_head_dim(dh: int) -> None:
+    """Raise unless the backward kernels take head dim ``dh``."""
+    if dh not in BWD_HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention_bwd kernel takes head_dim in {BWD_HEAD_DIMS}, got {dh}"
+            + ("; the backward at head dim 256 is ROADMAP.md B-2b" if dh == 256 else ""))
 
 
 def aligned16(t: torch.Tensor) -> bool:
@@ -108,6 +118,7 @@ def flash_attention_bwd(
     gradients have q's, k's and v's shapes and dtype, laid out as (b, s, h, dh)
     buffers seen through a transpose, as the forward's output is.
     """
+    check_bwd_head_dim(q.shape[-1])
     b, hq, sq, dh, hkv, sk, valid_k = _check(q, k, v, valid_k, "flash_attention_bwd")
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device \

@@ -2,7 +2,9 @@
 
 A CPU tensor goes to the plain version, which autograd differentiates; a
 CUDA tensor to the kernels at every sequence length, forward and backward
-(``_AttentionFn``), which launch or raise.  The JAX package's fallback to its
+(``_AttentionFn``), which launch or raise.  A call that needs a gradient at a
+head dim the backward does not take (256: ROADMAP B-2b) raises before the
+forward launches.  The JAX package's fallback to its
 dense reference below 128 and its padding to 128 follow from the TPU's block
 shape, and the port keeps neither: the kernels mask ragged edges themselves.
 """
@@ -12,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .flash_attention import aligned16
+from .flash_attention import aligned16, check_bwd_head_dim
 from .flash_attention import flash_attention as _kernel
 from .flash_attention import flash_attention_bwd as _kernel_bwd
 
@@ -23,6 +25,7 @@ class _AttentionFn(torch.autograd.Function):
         ctx.causal, ctx.window = causal, window
         if not need_grad:
             return _kernel(q, k, v, causal=causal, window=window)
+        check_bwd_head_dim(q.shape[-1])  # before the forward launches
         out, lse = _kernel(q, k, v, causal=causal, window=window, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out

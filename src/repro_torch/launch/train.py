@@ -109,6 +109,9 @@ def train_arch(arch: str = "qwen2-0.5b", steps: int = 3, coded: bool = False, se
     steps run (4, 1)-GC with a random straggler each round.  Returns the losses."""
     dev = resolve_device(device)
     cfg = get_config(arch) if full else get_smoke(arch)
+    if cfg.frontend != "none":
+        raise NotImplementedError(f"train_arch draws token batches only; {cfg.name} takes "
+                                  f"{cfg.frontend} inputs (see ROADMAP.md A-6b)")
     params, opt = init_train_state(cfg, torch.Generator(device=dev).manual_seed(seed))
     losses = []
     if coded:

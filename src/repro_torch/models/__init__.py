@@ -1,4 +1,4 @@
-"""Models of the port: the dense, moe, ssm and hybrid families."""
+"""Models of the port: the dense, moe, ssm, hybrid, vlm and audio families."""
 
 from .config import ModelConfig
 from .transformer import (

@@ -1,7 +1,6 @@
 """Model configuration: a field-for-field copy of the JAX package's
 ``ModelConfig``, so that a config of either package compares equal with its
-twin.  The port runs the dense, moe, ssm and hybrid families; the other
-fields are kept so that configs stay comparable."""
+twin."""
 
 from __future__ import annotations
 
@@ -69,6 +68,12 @@ class ModelConfig:
     @property
     def head_dim_(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def prefix_len(self) -> int:
+        """Positions before the text: a vlm's patch embeddings, else 0.
+        Sequence lengths and decode positions count them."""
+        return self.num_prefix_tokens if self.frontend == "vision_stub" else 0
 
     @property
     def is_attention_free(self) -> bool:

@@ -1,4 +1,4 @@
-"""Model assembly of four families:
+"""Model assembly of six families:
 
   dense  -- GQA attention + SwiGLU, optional QKV bias / sliding window /
             tied embeddings;
@@ -8,7 +8,13 @@
   ssm    -- Mamba2 blocks only (attention-free);
   hybrid -- zamba2-style: the Mamba2 stack with ONE shared (weight-tied)
             attention + MLP block applied after every ``attn_every`` of its
-            layers.
+            layers;
+  vlm    -- the dense decoder over [patch embeddings | text tokens]: the
+            batch's ``prefix_embeds`` (the stubbed vision tower's output) come
+            before the token embeddings, and the loss covers the text only;
+  audio  -- a non-causal encoder over the batch's precomputed ``frames`` (the
+            stubbed feature extractor's output), with a per-frame loss and no
+            decode step.
 
 Port of ``src/repro/models/transformer.py``.  Parameters are a plain dict:
 ``embed`` (vocab, d), ``final_norm``, optional ``head`` (d, vocab),
@@ -17,17 +23,18 @@ a leading axis and scans them; here the scan is a Python loop), and for the
 hybrid ``shared_attn``, the one block's weights.  The serve path
 (``prefill``, ``decode_step``, ``generate``) runs under
 ``torch.inference_mode`` and updates the cache in place: a KV cache for the
-dense and moe families; the SSM state and conv buffer for the ssm family;
-both for the hybrid, whose KV cache holds one slot per call of the shared
-block.
+dense, moe and vlm families; the SSM state and conv buffer for the ssm
+family; both for the hybrid, whose KV cache holds one slot per call of the
+shared block.
 
 Every entry point takes ``plain=False``; ``plain=True`` runs the plain
 PyTorch versions of the kernels on any device.  ``forward``, ``token_nll``
 and ``loss_fn`` run under autograd, each layer body under activation
 checkpointing as ``cfg.remat`` / ``cfg.remat_policy`` ask (``_remat``).  On
 the card, the kernels' backward kernels differentiate them (the dense
-and moe families; the ``ssd_scan`` kernel has no backward, so the ssm and
-hybrid families train on the CPU only for now).
+and moe families; the ``ssd_scan`` kernel has no backward, nor attention at
+head dim 256, so the ssm, hybrid and vlm families train on the CPU only for
+now).
 """
 
 from __future__ import annotations
@@ -58,18 +65,18 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-# families of the JAX package the port does not run yet -> ROADMAP item
-_UNPORTED_FAMILIES = {"vlm": "A-6", "audio": "A-6"}
+# the JAX package's families and input frontends
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+_FRONTENDS = ("none", "vision_stub", "audio_stub")
 # families whose every layer is an attention block
-_ATTN_FAMILIES = ("dense", "moe")
+_ATTN_FAMILIES = ("dense", "moe", "vlm", "audio")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.frontend != "none":
-        item = _UNPORTED_FAMILIES.get(cfg.family, "A-6")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported to repro_torch yet; "
-            f"see ROADMAP.md {item}"
+    if cfg.family not in _FAMILIES or cfg.frontend not in _FRONTENDS:
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} with frontend {cfg.frontend!r} is in neither "
+            f"package; the families are {_FAMILIES} and the frontends {_FRONTENDS}"
         )
 
 
@@ -143,9 +150,20 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
 
 
 def embed_inputs(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """(b, s, d) input sequence from batch["tokens"] (b, s)."""
+    """The (b, s, d) input sequence of the batch dict.
+
+    dense/moe/ssm/hybrid: batch["tokens"] (b, s);
+    vlm:   cat(batch["prefix_embeds"] (b, P, d), embed(tokens)), s = P + text;
+    audio: batch["frames"] (b, s, d), the stubbed feature extractor's output.
+    """
     _check_family(cfg)
-    return params["embed"][batch["tokens"]]
+    if cfg.frontend == "audio_stub":
+        return batch["frames"].to(torch_dtype(cfg))
+    tok_embeds = params["embed"][batch["tokens"]]
+    if cfg.frontend == "vision_stub":
+        prefix = batch["prefix_embeds"].to(tok_embeds.dtype)
+        return torch.cat([prefix, tok_embeds], dim=1)
+    return tok_embeds
 
 
 def _head(params, cfg: ModelConfig) -> torch.Tensor:
@@ -242,11 +260,14 @@ def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
 
 def token_nll(params, cfg: ModelConfig, batch, *, plain: bool = False):
     """(per-token f32 NLL, aux): next-token (b, s-1) for causal LMs, (b, s)
-    otherwise.  Log-softmax in f32 whatever the model dtype."""
+    otherwise; a vlm's labels cover its text only, so its NLL is the last
+    text - 1 positions'.  Log-softmax in f32 whatever the model dtype."""
     logits, aux = forward(params, cfg, batch, plain=plain)
     labels = batch["labels"]
     if cfg.causal:
         logits, labels = logits[:, :-1], labels[:, 1:]
+    if cfg.frontend == "vision_stub":
+        logits = logits[:, -labels.shape[1]:]
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels[..., None].long())[..., 0], aux
 
@@ -266,7 +287,8 @@ def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
 def init_cache(cfg: ModelConfig, batch_size: int, max_seq: int, dtype=None, device=None):
     """The decode cache, stacked on a leading layer axis.
 
-    dense and moe: KV cache k, v (L, b, hkv, max_seq, dh).  ssm: ``state``
+    dense, moe, vlm (and audio, which has no decode step): KV cache k, v
+    (L, b, hkv, max_seq, dh), a vlm's counting its prefix positions.  ssm: ``state``
     (L, b, nh, hd, st) f32 and ``conv`` (L, b, 3, conv_dim) in the model
     dtype, whatever ``max_seq``.  hybrid: those two, and ``shared_k``, ``shared_v`` (G, b,
     hkv, max_seq, dh), one slot for each of the G = L // attn_every calls of
@@ -328,12 +350,16 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, *, plain: bool = Fals
 
 @torch.inference_mode()
 def decode_step(params, cfg: ModelConfig, cache, token, pos: int, *, plain: bool = False):
-    """One serve step: token (b, 1) int, pos the token's position.
+    """One serve step: token (b, 1) int, pos the token's position (a vlm's
+    counts its prefix).
 
     Returns (logits (b, vocab), cache); the cache is updated in place.  The
     ssm family's state carries the position, so ``pos`` is not read there.
+    An encoder-only config (audio) has no decode step and raises.
     """
     _check_family(cfg)
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
     x = params["embed"][token]
     kv = ("k", "v") if cfg.family in _ATTN_FAMILIES else ("shared_k", "shared_v")
     if kv[0] in cache and not 0 <= pos < cache[kv[0]].shape[3]:
@@ -369,9 +395,14 @@ def generate(params, cfg: ModelConfig, batch, *, num_tokens: int,
              max_seq: int | None = None, plain: bool = False) -> torch.Tensor:
     """Greedy generation: prefill the prompt, then decode step by step.
 
-    batch: {"tokens": (b, s)} prompt.  Returns (b, num_tokens) int32.
+    batch: {"tokens": (b, s)} prompt, and a vlm's "prefix_embeds" (b, P, d).
+    Decoding starts at the embedded length, P + s for a vlm (the JAX
+    package's ``generate`` counts the text alone there: ROADMAP C-7).
+    Returns (b, num_tokens) int32.
     """
-    s = batch["tokens"].shape[1]
+    if not cfg.has_decode:
+        raise ValueError(f"{cfg.name} is encoder-only: no decode step")
+    s = cfg.prefix_len + batch["tokens"].shape[1]
     max_seq = max_seq or (s + num_tokens)
     logits, cache = prefill(params, cfg, batch, max_seq, plain=plain)
     token = logits[:, -1].argmax(dim=-1)[:, None].to(torch.int32)

@@ -26,8 +26,8 @@ from repro_torch.convert import params_from_jax
 from repro_torch.train.coded import value_and_grad
 from repro_torch.tree import tree_leaves
 
-PORTED = ["llama3.2-1b", "mixtral-8x22b", "qwen2-moe-a2.7b", "qwen2-72b", "qwen2-0.5b",
-          "zamba2-2.7b", "mamba2-1.3b", "deepseek-67b"]
+PORTED = ["llama3.2-1b", "mixtral-8x22b", "qwen2-moe-a2.7b", "qwen2-72b", "paligemma-3b",
+          "qwen2-0.5b", "hubert-xlarge", "zamba2-2.7b", "mamba2-1.3b", "deepseek-67b"]
 # f32 on the CPU: the two packages differ only in the order of their sums
 TOL = dict(rtol=1e-4, atol=1e-4)
 # tests/test_torch_kernels.py: f32 gradients, sums taken in other orders

@@ -351,14 +351,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_attention_wrappers_refuse_head_dims_the_kernels_do_not_take():
-    """Head dim 256 (paligemma-3b) is not built: both wrappers raise in
-    ``_check``, before any device check or launch, and nothing falls back."""
+    """The forward takes head dims 32, 64, 80, 128 and 256 and refuses 48 and
+    512; the backward refuses 256 (paligemma-3b's), naming ROADMAP B-2b.  Each
+    raises before any device check or launch, and nothing falls back."""
     before = (fa_kernel.launches, fa_bwd.launches)
+    for dh in (48, 512):
+        q = torch.ones(1, 2, 8, dh)
+        with pytest.raises(ValueError, match=rf"head_dim in \(32, 64, 80, 128, 256\), got {dh}"):
+            fa_kernel(q, q, q)
     q, lse = torch.ones(1, 2, 8, 256), torch.ones(1, 2, 8)
-    with pytest.raises(ValueError, match=r"head_dim in \(32, 64, 80, 128\), got 256"):
-        fa_kernel(q, q, q)
-    with pytest.raises(ValueError, match="head_dim"):
+    with pytest.raises(ValueError, match=r"head_dim in \(32, 64, 80, 128\), got 256.*B-2b"):
         fa_bwd(q, q, q, q, lse, q)
+    with pytest.raises(ValueError, match="CUDA"):  # 256 passes the forward's check
+        fa_kernel(q, q, q)
     assert (fa_kernel.launches, fa_bwd.launches) == before
 
 
