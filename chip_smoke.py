@@ -15,7 +15,7 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       kernels build unspilled in all four row buckets, and
                       unless all 24 RMSNorm backward kernels (four buckets of
                       warps a row and the chunked path, four dtype pairs)
-                      build unspilled;
+                      and all 14 SSD backward kernels build unspilled;
   3. rmsnorm       -- the kernel against its plain PyTorch version on the card;
   4. attention     -- the kernel against its plain PyTorch version on the card,
                       f32 (CUDA cores) and bf16 (tensor cores), the bf16 edges
@@ -46,6 +46,13 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       mamba2-1.3b's and zamba2-2.7b's full widths, and a steep
                       decay whose unmasked exp would overflow; misaligned
                       views refused;
+  7b. ssd-bwd      -- the fused chunk scan's backward kernel against the plain
+                      backward and against autograd of the plain forward, f32
+                      and bf16: the forward's sweep, a ragged Q and head_dim,
+                      steep decay, 4 chunks with a nonzero h_prev, s 150 of
+                      3 x 64, mamba2-1.3b's training shape (512 batch-chunks)
+                      and zamba2-2.7b's widths; each called twice, bit for bit
+                      the same;
   8. slice         -- full-width qwen2-0.5b serving through ``serve()`` (prefill
                       of 8 x 500 prompt tokens, 31 greedy decode steps), with
                       the kernels' launch counts read around that run; then a
@@ -112,6 +119,18 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       backward's dy came non-contiguous;
                       then one f32 coded gradient at 2 layers (full widths and
                       vocab) against the full-batch gradient and the plain path;
+ 11b. slice-ssm-train -- the same trainer at full mamba2-1.3b width over
+                      sequences of 256 tokens (4 chunks of 64): exactly 96 /
+                      48 fused-scan forward / backward and 193 / 97 RMSNorm
+                      launches a step, 0 attention and 0 intra, finite losses,
+                      step ms, peak memory, a profiled step; then
+                      ``train_arch("mamba2-1.3b", full=True, coded=True)``, 3
+                      steps; then loss_fn's f32 gradient at full width cut to
+                      2 layers, 2 x 500 tokens, kernels against plain=True;
+ 11c. slice-hybrid-train -- ``train_arch("zamba2-2.7b", full=True, coded=True)``,
+                      3 steps: exactly 108 / 54 fused-scan, 18 / 9 attention
+                      (head dim 80) and 253 / 127 RMSNorm launches a step,
+                      finite losses, step ms, peak memory;
  12. gate_window   -- both gate-window kernels against their plain versions,
                       exact, over windows of 0-32 rows (every row bucket's
                       edges), ragged n, (4096, 3, 256) and 5,000 cells (past
@@ -168,7 +187,9 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       RMSNorm backward at the GC and M-SGC coded steps'
                       (8192, 896) and (3072, 896), bf16 and f32, with the
                       same kernel built without its dgamma tail and the same
-                      bytes through torch.add beside it.
+                      bytes through torch.add beside it; the SSD backward at
+                      [slice-ssm-train]'s shape beside the plain backward and
+                      autograd of the plain forward.
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -242,6 +263,10 @@ ATTN_DH256_CASES = list(dict.fromkeys(c[:5] + (256,) + c[6:] for c in ATTN_BF16_
 ATTN_AUDIO_SERVED = (BATCH, 16, 16, PROMPT_LEN, PROMPT_LEN, 80, False, 0, None)
 GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}         # tests/test_kernels.py
 SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}        # tests/test_ssd_kernel.py
+# the SSD backward against the plain backward and autograd: rtol, and atol times
+# the output's largest magnitude (sums of up to thousands of f32 terms in
+# another order; for bf16 inputs dx, dB and dC are rounded to bf16 once)
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # f32 gradients, kernels against plain autograd: sums over thousands of rows
 # taken in other orders (tests/test_torch_kernels.py GRAD_TOL)
 RMSNORM_BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
@@ -280,6 +305,13 @@ SELECT_GRIDS = {
 SCENARIOS = dict(n=256, rounds=40, traces=16, seed=0)
 # the multi-model experiment of examples/multimodel_training.py over 16 jobs
 MULTIMODEL = dict(jobs=16, workers=64, models=4)
+# [slice-ssm-train]: TRAIN's trainer at full mamba2-1.3b width over sequences
+# of 256 tokens, 4 of its 64-token chunks, so that the state entering a chunk
+# (h_prev) is not 0 and the backward's inter-chunk terms run
+SSM_TRAIN_SEQ = 256
+# the f32 gradient of mamba2-1.3b at full width, 2 layers, 2 x 500 tokens (8
+# chunks, the last padded), kernels against plain=True
+SSM_GRAD = dict(layers=2, batch=2, seq=500)
 # bench_coded_train at full qwen2-0.5b width, [train-full]'s shapes
 CODED_TRAIN = dict(n=8, models=2, jobs=8, seq=64)
 # Fig. 18: run_adaptive's switch from uncoded to m-sgc (benchmarks/run.py)
@@ -442,6 +474,14 @@ def main() -> None:
     if len(rn_bwd_built) != 24 or any("0 bytes spill stores, 0 bytes spill loads" not in line
                                       for line in rn_bwd_built.values()):
         fail(f"the RMSNorm backward kernels spill or lack a bucket: {rn_bwd_built}")
+    # the SSD backward (f32 on the CUDA cores): three launches, each dtype pair
+    # and (intra) 1-3 causal tiles a thread, unspilled
+    ssd_bwd_built = {label: line for label, line in ptxas.items()
+                     if label.startswith("ssd_bwd_")}
+    say("build", f"the SSD backward's kernels: {ssd_bwd_built}")
+    if len(ssd_bwd_built) != 14 or any("0 bytes spill stores, 0 bytes spill loads" not in line
+                                       for line in ssd_bwd_built.values()):
+        fail(f"the SSD backward kernels spill or lack an instantiation: {ssd_bwd_built}")
     for label in (*[f"{k}<{dh}>" for dh in (64, 80) for k in (
                       "attn_fwd_bf16_kernel", "attn_bwd_dq_bf16_kernel",
                       "attn_bwd_dkdv_bf16_kernel")],
@@ -591,8 +631,9 @@ def main() -> None:
                         f"{tuple(kv.shape)} bf16 causal {causal}", a, bb, ATTN_TOL["bfloat16"])
     torch.cuda.synchronize()
 
-    # 7. ssd_scan kernel vs plain, both entries
+    # 7. ssd_scan kernel vs plain, both entries; 7b. the backward kernel
     errs.update(_ssd_check(dev))
+    errs.update(_ssd_bwd_check(dev))
 
     # 8. slice: full-width qwen2-0.5b and llama3.2-1b serving through the
     # port's entry point (the JSON line's launches are qwen2-0.5b's)
@@ -668,6 +709,16 @@ def main() -> None:
     launches.update(_train_full(dev, cfg))
     _coded_gradient_check(dev, cfg)
 
+    # 11b. slice-ssm-train: the same trainer at full mamba2-1.3b width over
+    # sequences of 4 chunks, then the launch entry point, then an f32 gradient
+    launches.update(_train_full(dev, scfg, "slice-ssm-train", SSM_TRAIN_SEQ,
+                                ("ssd_chunk_scan_bwd",)))
+    _train_arch_phase("slice-ssm-train", dev, scfg)
+    _ssm_gradient_check(dev, scfg)
+
+    # 11c. slice-hybrid-train: full-width zamba2-2.7b through the launch entry point
+    _train_arch_phase("slice-hybrid-train", dev, hcfg)
+
     # 12-15. the simulator's device path: the gate-window kernels, the
     # Table-1 grid, App.-J selection and the adaptive trainer
     errs.update(_gate_window_check(dev))
@@ -718,6 +769,9 @@ def main() -> None:
     rows += _training_timings(dev, cfg, randn, ptxas)
     rows += _gate_window_timings(dev)
     rows += _ssd_timing(dev)
+    row = _ssd_bwd_timing(dev)
+    row["launches_of"] = f"[slice-ssm-train] ({SSM_ARCH} coded training, gc and m-sgc)"
+    rows.append(row)
     _rmsnorm_bwd_turn()
     for r in rows:
         if r["launches"] is None:
@@ -844,35 +898,64 @@ def _train_demo(dev) -> int:
     return total
 
 
-def _train_full(dev, cfg) -> dict:
-    """VectorizedCodedTrainer at full width for each scheme; returns the
-    training kernels' launches over both runs."""
-    import numpy as np
-    import torch
-
-    from repro_torch.core import GilbertElliotSource, make_scheme
+def _train_counters() -> dict:
+    """The training path's kernel wrappers by name (each keeps its launches)."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention,
         flash_attention_bwd,
     )
     from repro_torch.kernels.gc_coding.gc_coding import coded_combine
-    from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.ssd_scan.ssd_scan import (
+        ssd_chunk_scan,
+        ssd_chunk_scan_bwd,
+        ssd_intra_chunk,
+    )
+
+    return {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd, "coded_combine": coded_combine,
+            "ssd_chunk_scan": ssd_chunk_scan, "ssd_chunk_scan_bwd": ssd_chunk_scan_bwd,
+            "ssd_intra_chunk": ssd_intra_chunk}
+
+
+def _per_step(cfg) -> dict:
+    """Kernel launches of one coded step of ``cfg``.  Each layer body is
+    rematerialised (cfg.remat), so its forward kernels run twice, once in the
+    forward and once again in the backward, and its backward kernels once; the
+    final norm's forward runs once.  A dense layer runs two norms and one
+    attention; a Mamba2 layer two norms (before the block and the gated norm)
+    and one fused chunk scan; the hybrid's shared block, after every
+    ``attn_every`` Mamba2 layers, two norms and one attention."""
+    L = cfg.num_layers
+    if cfg.family in ("ssm", "hybrid"):
+        G = L // cfg.attn_every if cfg.attn_every else 0
+        norms, attn, scans = 2 * L + 2 * G, G, L
+    else:
+        norms, attn, scans = 2 * L, L, 0
+    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn, "rmsnorm": 2 * norms + 1,
+            "rmsnorm_bwd": norms + 1, "ssd_chunk_scan": 2 * scans, "ssd_chunk_scan_bwd": scans,
+            "ssd_intra_chunk": 0, "coded_combine": 0}
+
+
+def _train_full(dev, cfg, phase="train-full", seq=TRAIN["seq"],
+                report=("rmsnorm_bwd", "flash_attention_bwd")) -> dict:
+    """VectorizedCodedTrainer at full width for each scheme, over sequences of
+    ``seq`` tokens; returns the launches of the ``report`` kernels over both
+    runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import GilbertElliotSource, make_scheme
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.train import VectorizedCodedTrainer
 
-    counters = {"flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
-                "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd, "coded_combine": coded_combine}
-    L = cfg.num_layers
-    # per coded step: one backward of each norm and attention, and two
-    # forwards of those inside a layer (its body runs again in the backward,
-    # cfg.remat); the final norm's forward once
-    per_step = {"flash_attention": 2 * L, "flash_attention_bwd": L, "rmsnorm": 4 * L + 1,
-                "rmsnorm_bwd": 2 * L + 1, "coded_combine": 0}
-    totals = dict.fromkeys(("rmsnorm_bwd", "flash_attention_bwd"), 0)
+    counters = _train_counters()
+    per_step = _per_step(cfg)
+    totals = dict.fromkeys(report, 0)
     for name, kw in TRAIN_SCHEMES.items():
         sch = make_scheme(name, TRAIN["n"], TRAIN["jobs"], **kw)
         tr = VectorizedCodedTrainer(scheme=sch, cfg=cfg, num_models=TRAIN["models"],
-                                    batch_size=TRAIN["batch"], seq_len=TRAIN["seq"], lr=1e-4,
+                                    batch_size=TRAIN["batch"], seq_len=seq, lr=1e-4,
                                     seed=0, device=dev)
         delays = GilbertElliotSource(n=TRAIN["n"], seed=0).sample_delays(
             TRAIN["jobs"] + sch.T + 1)
@@ -913,31 +996,123 @@ def _train_full(dev, cfg) -> dict:
         n_seq = TRAIN["n"] * tr.slots * TRAIN["batch"] // tr.num_chunks
         losses = [x for m in range(TRAIN["models"]) for x in tr.losses[m]]
         median_ms = statistics.median(times[1:]) * 1e3
-        say("train-full", f"{name} {kw}: {steps} coded steps of {n_seq} sequences x "
-                          f"{TRAIN['seq']} tokens ({TRAIN['models']} models, n {TRAIN['n']}, "
-                          f"batch {TRAIN['batch']}); simulated clock {clock:.6f} s; "
-                          f"job_done_time {tr.job_done_time}")
-        say("train-full", f"{name}: coded step {median_ms:.3f} ms median after a warm-up step "
-                          f"(all: {[round(t * 1e3, 3) for t in times]} ms); "
-                          f"max_memory_allocated {peak} B; losses {[round(x, 4) for x in losses]}")
-        say("train-full", f"{name}: launches per step "
-                          f"{ {k: v / steps for k, v in launches.items()} } (expected {per_step}); "
-                          f"the RMSNorm backward's dy non-contiguous in {dys['strided']} of "
-                          f"{dys['calls']} calls")
+        say(phase, f"{cfg.name} {name} {kw}: {steps} coded steps of {n_seq} sequences x "
+                   f"{seq} tokens ({TRAIN['models']} models, n {TRAIN['n']}, "
+                   f"batch {TRAIN['batch']}); simulated clock {clock:.6f} s; "
+                   f"job_done_time {tr.job_done_time}")
+        say(phase, f"{name}: coded step {median_ms:.3f} ms median after a warm-up step "
+                   f"(all: {[round(t * 1e3, 3) for t in times]} ms); "
+                   f"max_memory_allocated {peak} B; losses {[round(x, 4) for x in losses]}")
+        say(phase, f"{name}: launches per step "
+                   f"{ {k: v / steps for k, v in launches.items()} } (expected {per_step}); "
+                   f"the RMSNorm backward's dy non-contiguous in {dys['strided']} of "
+                   f"{dys['calls']} calls")
         if any(launches[k] != per_step[k] * steps for k in per_step):
-            fail(f"train-full {name}: launches {launches} over {steps} steps, expected "
+            fail(f"{phase} {name}: launches {launches} over {steps} steps, expected "
                  f"{per_step} per step")
         if steps != TRAIN["jobs"] or not np.isfinite(losses).all():
-            fail(f"train-full {name}: {steps} steps, losses {losses}")
+            fail(f"{phase} {name}: {steps} steps, losses {losses}")
         for k in totals:
             totals[k] += launches[k]
-        _breakdown(f"profile train-full {name} step",
+        _breakdown(f"profile {phase} {name} step",
                    _device_events(lambda: step(*last["args"])), median_ms)
-        if name == "gc":
+        if name == "gc" and phase == "train-full":
             _remat_turns(cfg, tr, step, last["args"])
         del tr, last
         torch.cuda.empty_cache()
     return totals
+
+
+def _train_arch_phase(phase, dev, cfg) -> None:
+    """``train_arch(cfg.name, full=True, coded=True, steps=3)``, the launch
+    entry point's (4, 1)-GC steps on 8 sequences of 64 tokens: exact launches
+    per step, finite losses, each step's ms and the peak memory."""
+    import numpy as np
+    import torch
+
+    import repro_torch.launch.train as launch_train
+
+    counters = _train_counters()
+    per_step = _per_step(cfg)
+    steps, times = 3, []
+    make = launch_train.make_coded_train_step
+
+    def make_timed(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*a)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    launch_train.make_coded_train_step = make_timed
+    try:
+        losses = launch_train.train_arch(cfg.name, steps=steps, coded=True, full=True,
+                                         device=dev)
+    finally:
+        launch_train.make_coded_train_step = make
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    say(phase, f"train_arch({cfg.name!r}, full=True, coded=True, steps={steps}): "
+               f"{cfg.param_count()} params in {cfg.dtype}; step ms "
+               f"{[round(t * 1e3, 3) for t in times]} (the first with its warm-up); "
+               f"max_memory_allocated {peak} B; losses {[round(x, 4) for x in losses]}")
+    say(phase, f"launches per step { {k: v / steps for k, v in launches.items()} } "
+               f"(expected {per_step})")
+    if any(launches[k] != per_step[k] * steps for k in per_step):
+        fail(f"{phase}: launches {launches} over {steps} steps, expected {per_step} per step")
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"{phase}: losses {losses}")
+    torch.cuda.empty_cache()
+
+
+def _ssm_gradient_check(dev, cfg) -> None:
+    """The f32 gradient of ``loss_fn`` at full ``cfg`` width, depth cut to
+    SSM_GRAD's layers, over SSM_GRAD's batch of sequences of several chunks
+    with a padded tail: through the kernels (fused scan forward and backward)
+    against the plain path on the card."""
+    import torch
+
+    from repro_torch.data import token_batch
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan, ssd_chunk_scan_bwd
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.coded import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg32 = cfg.replace(dtype="float32", num_layers=SSM_GRAD["layers"])
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(1))
+    batch = token_batch(0, 1, SSM_GRAD["batch"], SSM_GRAD["seq"], cfg32.vocab_size, device=dev)
+    ssd_chunk_scan.launches = ssd_chunk_scan_bwd.launches = 0
+    got = value_and_grad(lambda p: loss_fn(p, cfg32, batch), params)
+    launches = (ssd_chunk_scan.launches, ssd_chunk_scan_bwd.launches)
+    want = value_and_grad(lambda p: loss_fn(p, cfg32, batch, plain=True), params)
+    worst = max(float((a - b).abs().max()) for a, b in
+                zip(tree_leaves(got[1]), tree_leaves(want[1])))
+    ok = all(torch.allclose(a, b, **CODED_GRAD_TOL) for a, b in
+             zip(tree_leaves(got[1]), tree_leaves(want[1])))
+    L = cfg32.num_layers
+    chunks = -(-SSM_GRAD["seq"] // cfg32.ssm_chunk)
+    say("slice-ssm-train", f"f32 {L}-layer {cfg.name} gradient, {SSM_GRAD['batch']} x "
+                           f"{SSM_GRAD['seq']} tokens ({chunks} chunks of {cfg32.ssm_chunk}, the "
+                           f"last padded), kernels vs plain: loss {float(got[0]):.6f} vs "
+                           f"{float(want[0]):.6f}, max_abs_err {worst:.3e} ({CODED_GRAD_TOL}) "
+                           f"{'ok' if ok else 'MISMATCH'}; fused scan launches forward / "
+                           f"backward {launches}")
+    if not ok or abs(float(got[0]) - float(want[0])) > 1e-4:
+        fail("slice-ssm-train: the f32 gradient through the kernels disagrees with the plain path")
+    if launches != (2 * L, L):
+        fail(f"slice-ssm-train: fused scan launches {launches}, expected {(2 * L, L)}")
+    del got, want, params
+    torch.cuda.empty_cache()
 
 
 def _remat_turns(cfg, tr, step, args) -> None:
@@ -2003,6 +2178,78 @@ def _ssd_check(dev) -> dict:
     return worst
 
 
+def _ssd_bwd_check(dev) -> dict:
+    """The SSD backward kernel (``ssd_chunk_scan_bwd``) against the plain
+    backward (``ref.ssd_chunk_scan_bwd``) and against autograd of the plain
+    forward, f32 and bf16 (dy in the inputs' dtype, and once f32 dy for bf16
+    inputs), each called twice and bit-identical; returns the largest
+    absolute error at mamba2-1.3b's training shape in bf16."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan_bwd as scan_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    f32, bf16 = torch.float32, torch.bfloat16
+    train = (TRAIN_SEQS, SSM_TRAIN_SEQ // 64, 64, 64, 64, 128)   # as [slice-ssm-train] gives it
+    cases = [  # (b, nc, Q, nh, hd, st), dtype, dy dtype, A_scale, tail rows, note
+        *[(sh, dt, dt, 1.0, 0, "") for sh in [(2, 2, 16, 3, 8, 5), (1, 4, 64, 4, 32, 16),
+                                              (2, 1, 128, 2, 64, 32), (1, 2, 64, 8, 8, 128)]
+          for dt in (f32, bf16)],
+        ((1, 4, 64, 4, 32, 16), bf16, f32, 1.0, 0, " f32 dy"),
+        *[((2, 3, 50, 3, 20, 5), dt, dt, 1.0, 11, " ragged Q and head_dim") for dt in (f32, bf16)],
+        *[((1, 2, 64, 4, 16, 8), dt, dt, 200.0, 0, " steep decay") for dt in (f32, bf16)],
+        *[((2, 4, 64, 4, 32, 16), dt, dt, 1.0, 0, " 4 chunks") for dt in (f32, bf16)],
+        *[((2, 3, 64, 4, 32, 16), dt, dt, 1.0, 64 * 3 - 150, " s 150") for dt in (f32, bf16)],
+        *[(train, dt, dt, 1.0, 0, f" {SSM_ARCH}'s training shape") for dt in (f32, bf16)],
+        *[((16, 4, 64, 80, 64, 64), dt, dt, 1.0, 0, f" {HYBRID_ARCH}'s widths")
+          for dt in (f32, bf16)],
+    ]
+    names = ("dx", "ddt", "dcum", "dB", "dC", "dh_prev", "dD")
+    worst = {}
+    for shape, dtype, dy_dtype, A_scale, tail, note in cases:
+        b, nc, Q, nh, hd, st = shape
+        args = _ssd_inputs(dev, gen, *shape, dtype, A_scale, tail)
+        h_prev = torch.randn((b * nc, nh, hd, st), generator=gen, device=dev) * 0.5
+        D = torch.randn(nh, generator=gen, device=dev)
+        s = nc * Q - tail
+        dy = torch.randn((b, s, nh, hd), generator=gen, device=dev).to(dy_dtype)
+        got = scan_bwd(*args, h_prev, D, dy, nc, s)
+        again = scan_bwd(*args, h_prev, D, dy, nc, s)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            fail(f"ssd-bwd {shape}{note}: a second call gave other bits")
+        chunked = [t.unflatten(0, (b, nc)) for t in (*args, h_prev)]
+        want = ssd_ref.ssd_chunk_scan_bwd(*chunked, D, s, dy)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (*chunked, D)]
+        y = ssd_ref.ssd_chunk_scan(*leaves[:6], leaves[6], s, dy_dtype)
+        autograd = torch.autograd.grad(y, leaves, dy)
+        del y, leaves
+        tol = SSD_BWD_TOL[_dtype_name(dtype)]
+        errs = []
+        for name, g, w, a in zip(names, got, want, autograd):
+            g = g.reshape(w.shape)
+            if not torch.isfinite(g.float()).all():
+                fail(f"ssd-bwd {shape}{note}: non-finite {name}")
+            scale = max(1.0, float(w.float().abs().max()))
+            for what, ref_ in (("plain", w), ("autograd", a)):
+                err = float((g.float() - ref_.float()).abs().max())
+                if not torch.allclose(g.float(), ref_.float(), rtol=tol, atol=tol * scale):
+                    fail(f"ssd-bwd {shape}{note} {name}: kernel disagrees with the {what} "
+                         f"backward by {err:.3e} (scale {scale:.3e}, tol {tol:g})")
+            errs.append(f"{name} {float((g.float() - w.float()).abs().max()):.2e}/{scale:.1e}")
+        say("ssd-bwd", f"{shape} {_dtype_name(dtype)} dy {_dtype_name(dy_dtype)}, s {s}{note}: "
+                       f"max_abs_err / scale vs plain {', '.join(errs)} (tol {tol:g} x scale; "
+                       f"autograd likewise); bit-identical on a second call")
+        if (shape, dtype) == (train, bf16):
+            worst["ssd_chunk_scan_bwd"] = max(
+                float((g.reshape(w.shape).float() - w.float()).abs().max())
+                for g, w in zip(got, want))
+        del got, again, want, autograd
+    torch.cuda.empty_cache()
+    return worst
+
+
 def _serve_slice(phase, dev, cfg, counters, want, batch=BATCH, prompt_len=PROMPT_LEN,
                  new_tokens=NEW_TOKENS) -> dict:
     """Full-width serving of ``cfg`` through ``serve()`` (random weights from
@@ -2380,6 +2627,54 @@ def _ssd_timing(dev) -> list:
     return rows
 
 
+def _ssd_bwd_timing(dev) -> dict:
+    """The SSD backward at [slice-ssm-train]'s shape (GC's 128 sequences of 4
+    chunks: 512 batch-chunks of Q 64, 64 heads of 64, d_state 128), bf16 x,
+    B, C and dy, beside the plain backward (``ref.ssd_chunk_scan_bwd``) and
+    autograd of the plain forward; no one PyTorch call computes it.  The
+    bound: every input read once and every output written once, against the
+    function's products at the bf16 tensor-core rate.  Returns the JSON row."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan_bwd as scan_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, nc, Q, nh, hd, st = TRAIN_SEQS, SSM_TRAIN_SEQ // 64, 64, 64, 64, 128
+    bf16, bc, s = torch.bfloat16, TRAIN_SEQS * SSM_TRAIN_SEQ // 64, SSM_TRAIN_SEQ
+    args = _ssd_inputs(dev, gen, b, nc, Q, nh, hd, st, bf16)
+    h_prev = torch.randn((bc, nh, hd, st), generator=gen, device=dev) * 0.5
+    D = torch.randn(nh, generator=gen, device=dev)
+    dy = torch.randn((b, s, nh, hd), generator=gen, device=dev).to(bf16)
+    chunked = [t.unflatten(0, (b, nc)) for t in (*args, h_prev)]
+    outs = scan_bwd(*args, h_prev, D, dy, nc, s)
+    n_bytes = sum(t.numel() * t.element_size() for t in (*args, h_prev, D, dy, *outs))
+    # the function's work: S = C B^T, dW and W^T dy over the causal half; dB
+    # and dC from dS; G = dy . h_prev and dh_prev per head; the elementwise
+    # terms (W, dW * W, dS, the inter-chunk dcum and dC, dx, ddt, dD)
+    causal = Q * (Q + 1) // 2
+    n_ops = bc * (3 * 2 * causal * st + nh * (2 * 2 * causal * hd + 2 * 2 * Q * hd * st
+                                              + 6 * causal + 4 * Q * st + 6 * Q * hd))
+    del outs
+    row = _timed("ssd_chunk_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                 "src/repro/kernels/ssd_scan/ssd_scan.py:30 (no backward there: C-2)",
+                 (bc, Q, nh, hd, st), lambda: scan_bwd(*args, h_prev, D, dy, nc, s),
+                 lambda: ssd_ref.ssd_chunk_scan_bwd(*chunked, D, s, dy), None,
+                 n_bytes, n_ops, "bf16_tensor", iters=10)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (*chunked, D)]
+    y = ssd_ref.ssd_chunk_scan(*leaves[:6], leaves[6], s, bf16)
+    autograd = _device_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), 5)
+    del y, leaves
+    f32_ms = row["ops"] / PEAK_OPS_PER_S["f32"] * 1e3
+    say("timings", f"ssd_chunk_scan_bwd {row['shape']}: kernel {row['ms']:.5f} ms, "
+                   f"{_rates(row)} ({row['bound_ms']:.5f} ms by {row['bound_by']}; "
+                   f"{f32_ms:.5f} ms for its products at the f32 CUDA-core peak, where it "
+                   f"runs them); plain backward {row['plain_ms']:.5f} ms, autograd of the "
+                   f"plain forward {_ms(autograd)}")
+    torch.cuda.empty_cache()
+    return row
+
+
 def _logit_check(name, got, want, quiet=False, phase="slice") -> float:
     import torch
 
@@ -2510,6 +2805,8 @@ def _category(name: str) -> str:
         return "rmsnorm kernel"
     if "window_stats_kernel" in name or "buffer_stats_kernel" in name:
         return "gate_window kernels"
+    if "ssd_bwd_" in name:
+        return "ssd_scan backward kernels"
     if "ssd_bf16_kernel" in name or "ssd_f32_kernel" in name:
         return "ssd_scan kernel"
     if any(w in name.lower() for w in ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitk")):
@@ -2537,9 +2834,12 @@ def _breakdown(phase: str, events, wall_ms: float) -> None:
     for span, ts in spans.items():
         say(phase, f"  {span} layers in all: {sum(ts):.3f} ms ({sum(ts) / busy:.3f} of busy) "
                    f"in {len(ts)} device activities")
-    # the largest single device activities, by name, of the "other" category
+    # the largest single device activities, by name, of the "other" category,
+    # their functors named (PyTorch's templates put them past the first 90
+    # characters)
     for name, ts in sorted(names.items(), key=lambda kv: -sum(kv[1]))[:5]:
-        say(phase, f"    {sum(ts):.3f} ms in {len(ts)} x {name[:90]}")
+        short = name.replace("void ", "").replace("at::native::", "").replace("c10::", "")
+        say(phase, f"    {sum(ts):.3f} ms in {len(ts)} x {short[:150]}")
 
 
 def _timed(name, source, replaces, shape, kernel, plain, library, n_bytes, n_ops, op_type,

@@ -21,7 +21,8 @@ Kernels:
     all-or-nothing admission, ``buffer_stats`` for the selective one.
   * ``ssd_scan``        — Mamba2's SSD intra-chunk block (scores C.B^T, the
     causal decay mask and the product with x*dt, per batch-chunk; bound by
-    bytes), forward only.
+    bytes), forward only; and the fused chunk scan (the chunk's whole
+    output), forward and backward.
 """
 
 from . import flash_attention, gate_window, gc_coding, rmsnorm, ssd_scan  # noqa: F401

@@ -119,5 +119,11 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({msg})")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch plans size grids by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

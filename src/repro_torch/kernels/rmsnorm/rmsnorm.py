@@ -36,11 +36,6 @@ def _bwd_fn():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check(x: torch.Tensor, gamma: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda" or gamma.device != x.device:
         raise ValueError(f"{what} kernel needs CUDA tensors on one device, got "
@@ -133,7 +128,7 @@ def rmsnorm_bwd(x: torch.Tensor, gamma: torch.Tensor, dy: torch.Tensor, *,
     dgamma = torch.empty_like(gamma)
     size = x.element_size()
     wide = _wide(d, size, x.data_ptr(), dy.data_ptr(), dx.data_ptr(), gamma.data_ptr())
-    plan = _plan(rows, d, 16 // size if wide else 1, _sm_count(x.device))
+    plan = _plan(rows, d, 16 // size if wide else 1, _build.sm_count(x.device))
     partial = torch.empty((plan.slabs, d), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     counters = _counter(x.device, stream)

@@ -7,12 +7,17 @@ Two modes:
     runtime and real training losses (``train_demo``).
   * ``--arch``: uncoded or GC-coded train steps of one model
     (``train_arch``), at the smoke size or, with ``--full``, at full width.
+    On the card the dense, moe, ssm and hybrid families train (mamba2-1.3b,
+    zamba2-2.7b: the fused SSD chunk scan forward and backward kernels);
+    the vlm needs the attention backward at head dim 256 (ROADMAP B-2b),
+    and hubert-xlarge takes frames, not tokens.
 
 Runs on the card unless ``--device cpu`` is given; with no card it raises
 rather than fall back.
 
   PYTHONPATH=src python -m repro_torch.launch.train --demo --scheme m-sgc --jobs 60
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --steps 3 --coded
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --full --coded
   PYTHONPATH=src python -m repro_torch.launch.train --demo --device cpu
 """
 

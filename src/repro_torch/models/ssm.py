@@ -5,8 +5,10 @@ length Q; within a chunk the output is a masked quadratic form (the
 intra-chunk part); across chunks a state of shape (heads, head_dim, d_state)
 is carried by a loop over the chunks (the JAX package's ``lax.scan``).  On
 the card the chunk's output, intra-chunk part, inter-chunk term and D skip,
-is one ``ssd_scan`` kernel launch (``ssd_chunk_scan``).  ``ssm_decode_step``
-is the O(1) single-token recurrence.  Real scalar-per-head A, B/C shared
+is one ``ssd_scan`` kernel launch (``ssd_chunk_scan``), and its gradient one
+call of the backward kernel; autograd differentiates the torch passes
+around it (the pad, the cumsum, the chunk states, the recurrence).
+``ssm_decode_step`` is the O(1) single-token recurrence.  Real scalar-per-head A, B/C shared
 across heads (one group), a width-4 depthwise causal conv, as in the JAX
 package.
 

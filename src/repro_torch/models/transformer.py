@@ -31,10 +31,10 @@ Every entry point takes ``plain=False``; ``plain=True`` runs the plain
 PyTorch versions of the kernels on any device.  ``forward``, ``token_nll``
 and ``loss_fn`` run under autograd, each layer body under activation
 checkpointing as ``cfg.remat`` / ``cfg.remat_policy`` ask (``_remat``).  On
-the card, the kernels' backward kernels differentiate them (the dense
-and moe families; the ``ssd_scan`` kernel has no backward, nor attention at
-head dim 256, so the ssm, hybrid and vlm families train on the CPU only for
-now).
+the card, the kernels' backward kernels differentiate them: the dense, moe,
+ssm and hybrid families (the fused ``ssd_scan`` entry's backward is
+``csrc/ssd_scan_bwd.cu``).  Attention at head dim 256 has no backward
+kernel (ROADMAP B-2b), so the vlm family trains on the CPU only for now.
 """
 
 from __future__ import annotations

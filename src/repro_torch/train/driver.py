@@ -21,7 +21,10 @@ schemes (and with the JAX package) while the training itself is genuine.
   weighted sum) are each one ``coded_combine`` kernel launch on the card.
 * :class:`VectorizedCodedTrainer` — the production loop: each decodable
   job is ONE ``make_coded_train_step`` call on the (n, slots) replicated
-  batch view, whose weighted loss is the decoder.
+  batch view, whose weighted loss is the decoder.  Any token model whose
+  backward runs on the card trains here: the dense, moe, ssm and hybrid
+  families (``seq_len`` sets the sequence, so several of a Mamba2 model's
+  chunks, and the state carried between them, can be trained).
 * :func:`run_adaptive` — App. K.2 / Fig. 18: train uncoded for a probe
   phase, select coding parameters from the observed delays with the
   lockstep simulator (``core.select_parameters``, on the device), then

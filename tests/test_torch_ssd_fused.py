@@ -138,16 +138,31 @@ def test_chunk_scan_op_on_the_cpu_is_its_plain_version():
     assert y.dtype == torch.bfloat16
 
 
-def test_chunk_scan_op_refuses_a_gradient_off_the_cpu():
+def test_chunk_scan_op_refuses_a_gradient_off_the_cpu(monkeypatch):
+    """The fused entry is differentiable off the CPU: a call that needs a
+    gradient goes into ``_SSDChunkScanFn`` (its backward is the kernel of
+    ``csrc/ssd_scan_bwd.cu``), one that does not straight to the forward
+    kernel.  A device with no kernel (meta) is still refused either way."""
     x = torch.empty(1, 2, 16, 2, 8, device="meta", requires_grad=True)
     dt = torch.empty(1, 2, 16, 2, device="meta")
     Bm = torch.empty(1, 2, 16, 4, device="meta")
     h = torch.empty(1, 2, 2, 8, 4, device="meta")
     D = torch.empty(2, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for args in ((x, dt, dt, Bm, Bm, h, D, 32), (x.detach(), dt, dt, Bm, Bm, h, D, 32)):
+        with pytest.raises(ValueError, match="no implementation"):
+            ssd_ops.ssd_chunk_scan(*args)
+    # past the device check, the meta tensors show where each call goes
+    routes = []
+    monkeypatch.setattr(ssd_ops, "_check_device", lambda what, device: None)
+    monkeypatch.setattr(ssd_ops, "_scan_kernel", lambda *a: routes.append(("kernel", a[7:])))
+    monkeypatch.setattr(ssd_ops._SSDChunkScanFn, "apply",
+                        lambda *a: routes.append(("autograd", a[7:])))
+    ssd_ops.ssd_chunk_scan(x, dt, dt, Bm, Bm, h, D, 32)
+    ssd_ops.ssd_chunk_scan(x.detach(), dt, dt, Bm, Bm, h, D, 32, torch.bfloat16)
+    with torch.no_grad():
         ssd_ops.ssd_chunk_scan(x, dt, dt, Bm, Bm, h, D, 32)
-    with pytest.raises(ValueError, match="no implementation"):
-        ssd_ops.ssd_chunk_scan(x.detach(), dt, dt, Bm, Bm, h, D, 32)
+    assert routes == [("autograd", (2, 32, torch.float32)), ("kernel", (2, 32, torch.bfloat16)),
+                      ("kernel", (2, 32, torch.float32))]
 
 
 # -- the bf16 kernel's rounding, modelled in f32 on the CPU ------------------------

@@ -374,12 +374,14 @@ def test_serve_on_cpu_matches_generate():
 
 
 def test_ssd_op_refuses_a_gradient_off_the_cpu():
-    """The kernel is forward only: a call off the CPU that needs a gradient
-    raises (here on the meta device, which the op otherwise refuses too)."""
+    """The intra-chunk entry is forward only, as the JAX package's Pallas
+    kernel is: a call off the CPU that needs a gradient raises and names the
+    fused entry as the differentiable one (here on the meta device, which the
+    op otherwise refuses too)."""
     x = torch.empty(1, 2, 16, 2, 8, device="meta", requires_grad=True)
     dt = torch.empty(1, 2, 16, 2, device="meta")
     Bm = torch.empty(1, 2, 16, 4, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md B-3 .* A-7"):
+    with pytest.raises(NotImplementedError, match="differentiable entry is ssd_chunk_scan"):
         ssd_ops.ssd_intra_chunk(x, dt, dt, Bm, Bm)
     with pytest.raises(ValueError, match="no implementation"):
         ssd_ops.ssd_intra_chunk(x.detach(), dt, dt, Bm, Bm)
