@@ -15,7 +15,9 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       kernels build unspilled in all four row buckets, and
                       unless all 24 RMSNorm backward kernels (four buckets of
                       warps a row and the chunked path, four dtype pairs)
-                      and all 14 SSD backward kernels build unspilled;
+                      and all 20 SSD backward kernels build unspilled, and
+                      the SASS of each of the 10 bf16 ones (inter, intra and
+                      finish on the tensor cores) holds HMMA;
   3. rmsnorm       -- the kernel against its plain PyTorch version on the card;
   4. attention     -- the kernel against its plain PyTorch version on the card,
                       f32 (CUDA cores) and bf16 (tensor cores), the bf16 edges
@@ -46,13 +48,16 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       mamba2-1.3b's and zamba2-2.7b's full widths, and a steep
                       decay whose unmasked exp would overflow; misaligned
                       views refused;
-  7b. ssd-bwd      -- the fused chunk scan's backward kernel against the plain
-                      backward and against autograd of the plain forward, f32
-                      and bf16: the forward's sweep, a ragged Q and head_dim,
-                      steep decay, 4 chunks with a nonzero h_prev, s 150 of
-                      3 x 64, mamba2-1.3b's training shape (512 batch-chunks)
-                      and zamba2-2.7b's widths; each called twice, bit for bit
-                      the same;
+  7b. ssd-bwd      -- the fused chunk scan's backward kernels against the
+                      plain backward and against autograd of the plain
+                      forward, f32 (CUDA cores) and bf16 (tensor cores; bf16
+                      inputs with an f32 dy on the CUDA cores): the forward's
+                      sweep, a ragged Q and head_dim, steep decay, 4 chunks
+                      with a nonzero h_prev, s 150 of 3 x 64, mamba2-1.3b's
+                      training shape (512 batch-chunks), zamba2-2.7b's widths,
+                      and x, B and C as strided views of a conv output at
+                      mamba2's widths; each called twice, bit for bit the
+                      same;
   8. slice         -- full-width qwen2-0.5b serving through ``serve()`` (prefill
                       of 8 x 500 prompt tokens, 31 greedy decode steps), with
                       the kernels' launch counts read around that run; then a
@@ -189,7 +194,8 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       same kernel built without its dgamma tail and the same
                       bytes through torch.add beside it; the SSD backward at
                       [slice-ssm-train]'s shape beside the plain backward and
-                      autograd of the plain forward.
+                      autograd of the plain forward, and each of its three
+                      launches' device time.
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -474,14 +480,23 @@ def main() -> None:
     if len(rn_bwd_built) != 24 or any("0 bytes spill stores, 0 bytes spill loads" not in line
                                       for line in rn_bwd_built.values()):
         fail(f"the RMSNorm backward kernels spill or lack a bucket: {rn_bwd_built}")
-    # the SSD backward (f32 on the CUDA cores): three launches, each dtype pair
-    # and (intra) 1-3 causal tiles a thread, unspilled
+    # the SSD backward, three launches each: on the CUDA cores (f32, and bf16
+    # inputs with an f32 dy; intra 1-3 causal tiles a thread) and on the tensor
+    # cores (bf16: inter at 128- and 64-column state tiles and Q 128, intra at
+    # Q 64 and 128 and head dims 32, 64, 128, finish), all unspilled, and the
+    # bf16 ones' SASS holds HMMA
     ssd_bwd_built = {label: line for label, line in ptxas.items()
                      if label.startswith("ssd_bwd_")}
     say("build", f"the SSD backward's kernels: {ssd_bwd_built}")
-    if len(ssd_bwd_built) != 14 or any("0 bytes spill stores, 0 bytes spill loads" not in line
+    if len(ssd_bwd_built) != 20 or any("0 bytes spill stores, 0 bytes spill loads" not in line
                                        for line in ssd_bwd_built.values()):
         fail(f"the SSD backward kernels spill or lack an instantiation: {ssd_bwd_built}")
+    bf16_ssd_bwd = {label: hmma.get(label, 0) for label in ssd_bwd_built
+                    if "_bf16_kernel" in label}
+    say("build", f"HMMA instructions in the SASS of the bf16 SSD backward: {bf16_ssd_bwd}")
+    if len(bf16_ssd_bwd) != 10 or not all(bf16_ssd_bwd.values()):
+        fail(f"the bf16 SSD backward kernels' SASS lacks tensor-core instructions: "
+             f"{bf16_ssd_bwd}")
     for label in (*[f"{k}<{dh}>" for dh in (64, 80) for k in (
                       "attn_fwd_bf16_kernel", "attn_bwd_dq_bf16_kernel",
                       "attn_bwd_dkdv_bf16_kernel")],
@@ -1517,6 +1532,32 @@ def _rmsnorm_bwd_turn(src: str = str(ROOT / "src")) -> None:
             say("turn", f"({rows}, 896) {_dtype_name(dtype)}: {total:.3f} us a call; {launches}")
 
 
+def _ssd_bwd_turn(src: str = str(ROOT / "src")) -> None:
+    """One turn of comparing two trees' SSD backward in one call: with the
+    tree's ``src`` first on sys.path, the device time of ``ssd_chunk_scan_bwd``
+    a call and by launch at [slice-ssm-train]'s shape in bf16, as
+    :func:`_ssd_bwd_timing` draws it (profiler, 10 calls after a warm-up).  Run
+    as ``python3 -c "import chip_smoke as c; c._ssd_bwd_turn('build/parent/src')"``."""
+    sys.path.insert(0, str(Path(src).resolve()))
+    import torch
+
+    import repro_torch
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan_bwd as scan_bwd
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    say("turn", f"{repro_torch.__file__}; {nvidia_smi()}")
+    b, nc, Q, nh, hd, st = TRAIN_SEQS, SSM_TRAIN_SEQ // 64, 64, 64, 64, 128
+    bc, s = b * nc, SSM_TRAIN_SEQ
+    args = _ssd_inputs(dev, gen, b, nc, Q, nh, hd, st, torch.bfloat16)
+    h_prev = torch.randn((bc, nh, hd, st), generator=gen, device=dev) * 0.5
+    D = torch.randn(nh, generator=gen, device=dev)
+    dy = torch.randn((b, s, nh, hd), generator=gen, device=dev).to(torch.bfloat16)
+    per = _launch_ms(lambda: scan_bwd(*args, h_prev, D, dy, nc, s), 10)
+    say("turn", f"ssd_chunk_scan_bwd {(bc, Q, nh, hd, st)} bf16: {sum(per.values()):.5f} ms a "
+                f"call; " + ", ".join(f"{k} {v:.5f} ms" for k, v in per.items()))
+
+
 def _sim_parity(ref, got, exact: bool) -> bool:
     """The simulator's parity contract (the JAX package's
     ``core.testing.assert_sim_parity``): exact on done rounds, wait-outs and
@@ -2204,12 +2245,18 @@ def _ssd_bwd_check(dev) -> dict:
         *[(train, dt, dt, 1.0, 0, f" {SSM_ARCH}'s training shape") for dt in (f32, bf16)],
         *[((16, 4, 64, 80, 64, 64), dt, dt, 1.0, 0, f" {HYBRID_ARCH}'s widths")
           for dt in (f32, bf16)],
+        ((8, 4, 64, 64, 64, 128), bf16, bf16, 1.0, 20,
+         f" strided views at {SSM_ARCH}'s widths"),
     ]
     names = ("dx", "ddt", "dcum", "dB", "dC", "dh_prev", "dD")
     worst = {}
     for shape, dtype, dy_dtype, A_scale, tail, note in cases:
         b, nc, Q, nh, hd, st = shape
         args = _ssd_inputs(dev, gen, *shape, dtype, A_scale, tail)
+        if "strided" in note:  # x, B and C as the model slices them from its conv output
+            xbc = torch.cat([args[0].flatten(2), args[3], args[4]], dim=-1)
+            args = (xbc[..., :nh * hd].unflatten(-1, (nh, hd)), args[1], args[2],
+                    xbc[..., nh * hd:nh * hd + st], xbc[..., nh * hd + st:])
         h_prev = torch.randn((b * nc, nh, hd, st), generator=gen, device=dev) * 0.5
         D = torch.randn(nh, generator=gen, device=dev)
         s = nc * Q - tail
@@ -2665,14 +2712,30 @@ def _ssd_bwd_timing(dev) -> dict:
     y = ssd_ref.ssd_chunk_scan(*leaves[:6], leaves[6], s, bf16)
     autograd = _device_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), 5)
     del y, leaves
-    f32_ms = row["ops"] / PEAK_OPS_PER_S["f32"] * 1e3
+    row["launch_ms"] = _launch_ms(lambda: scan_bwd(*args, h_prev, D, dy, nc, s), 5)
     say("timings", f"ssd_chunk_scan_bwd {row['shape']}: kernel {row['ms']:.5f} ms, "
-                   f"{_rates(row)} ({row['bound_ms']:.5f} ms by {row['bound_by']}; "
-                   f"{f32_ms:.5f} ms for its products at the f32 CUDA-core peak, where it "
-                   f"runs them); plain backward {row['plain_ms']:.5f} ms, autograd of the "
-                   f"plain forward {_ms(autograd)}")
+                   f"{_rates(row)} ({row['bound_ms']:.5f} ms by {row['bound_by']}; the bf16 "
+                   f"kernels run its products on the tensor cores); plain backward "
+                   f"{row['plain_ms']:.5f} ms, autograd of the plain forward {_ms(autograd)}; "
+                   f"by launch "
+                   + ", ".join(f"{k} {v:.5f} ms" for k, v in row["launch_ms"].items()))
     torch.cuda.empty_cache()
     return row
+
+
+def _launch_ms(fn, calls: int) -> dict:
+    """Device ms a call of each kernel that fn launches, by its name (the
+    profiler's, cut to the kernel and its template arguments), over ``calls``
+    profiled calls after a warm-up."""
+    import re
+
+    fn()
+    times: dict[str, float] = {}
+    for name, us, _ in _device_events(lambda: [fn() for _ in range(calls)]):
+        m = re.search(r"\w+_kernel(<[^>]*>)?", name)
+        key = m.group(0) if m else name[:60]
+        times[key] = times.get(key, 0.0) + us / 1e3 / calls
+    return times
 
 
 def _logit_check(name, got, want, quiet=False, phase="slice") -> float:

@@ -1,7 +1,9 @@
 // Tensor-core building blocks shared by the bf16 attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): warp-level mma.sync on
-// m16n8k16 bf16 tiles with f32 accumulators, ldmatrix fragment loads,
-// cp.async copies into a padded shared-memory tile layout.
+// (flash_attention.cu, flash_attention_bwd.cu) and the bf16 SSD kernels
+// (ssd_scan.cu, ssd_scan_bwd.cu): warp-level mma.sync on m16n8k16 bf16 tiles
+// with f32 accumulators, ldmatrix fragment loads, cp.async copies into a padded
+// shared-memory tile layout, f32 operands split into bf16 hi + lo, and named
+// barriers for the warps that share a head.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), four b32 registers of two bf16 each:
@@ -51,6 +53,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
+// Two 8x8 b16 matrices, transposed on the way; lanes 0..15 give the row
+// addresses (8i..8i+7 of matrix i).  From a k-major tile (rows k, columns n),
+// rows k0 + (lane & 15) at column n0: the B fragment (b0, b1) of one n-tile.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
 // d += a * b on one 16 x 8 x 16 tile, bf16 inputs, f32 accumulators.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -66,6 +78,21 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// v rounded to bf16 (hi) and the rest of v rounded to bf16 (lo), two columns
+// of a fragment in one register each: hi + lo keeps ~16 bits of an f32 operand,
+// and a product over it is two mma.sync on the other operand's one fragment.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+// A named barrier: the `threads` threads (a multiple of 32) that use `id` meet.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // 16 bytes global -> shared, bypassing L1; with ok false nothing is read and
@@ -110,6 +137,32 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// rows [0, rows_p) x columns [0, cols_p) (a multiple of 8) of a (rows, cols)
+// bf16 source with row stride rs and column stride cs into a padded tile (ld
+// elements between rows), zero past rows and cols: by 16-byte cp.async when
+// `vec` (contiguous rows of a multiple of 8 elements, 16-byte aligned), else
+// element by element.  The caller commits.
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
+                                          long long rs, long long cs, int rows, int cols,
+                                          int rows_p, int cols_p, bool vec, int tid,
+                                          int nthreads) {
+  const int chunks = cols_p / 8;
+  for (int i = tid; i < rows_p * chunks; i += nthreads) {
+    const int r = i / chunks, c = i % chunks;
+    __nv_bfloat16* d = dst + r * ld + c * 8;
+    if (vec) {
+      const bool ok = r < rows && c * 8 < cols;
+      cp_async_16(d, ok ? src + r * rs + c * 8 : src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = c * 8 + e;
+        d[e] = r < rows && col < cols ? src[r * rs + col * cs] : __float2bfloat16(0.f);
+      }
+    }
+  }
+}
+
 // Lane offsets (row, column) into a padded tile of the address each lane gives
 // ldmatrix_x4, for the three fragment shapes used:
 //  * A fragment of a 16 x 16 row-major block, or B fragments (trans) of two
@@ -121,6 +174,8 @@ __device__ __forceinline__ int a_col(int lane) { return (lane >> 4) << 3; }
 //    columns of a block stored n-major (K in Q.Kt, V in dO.Vt, Q and dO in
 //    K.Qt and V.dOt): matrices (rows 0-7, cols 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15),
 //    so registers (0, 1) are n-tile 0's (b0, b1) and (2, 3) n-tile 1's.
+//    The same offsets with ldmatrix_x4_trans give the A fragment of the
+//    transpose of a block stored k-major (dy^T in dh_prev, dS^T in dB).
 __device__ __forceinline__ int b_row(int lane) { return ((lane >> 4) << 3) + (lane & 7); }
 __device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) << 3; }
 

@@ -380,30 +380,6 @@ __host__ __device__ inline Bf16Layout bf16_layout(int QT, int HD, int st, bool f
   return l;
 }
 
-// rows [0, rows_p) x columns [0, cols_p) (a multiple of 8) of a (rows, cols)
-// bf16 source into a padded tile (ld elements between rows), zero past rows and
-// cols: by 16-byte cp.async when `vec` (contiguous rows of a multiple of 8
-// elements, 16-byte aligned), else element by element.  The caller commits.
-__device__ __forceinline__ void load_rows(bf16* dst, int ld, const bf16* src, long long rs,
-                                          long long cs, int rows, int cols, int rows_p,
-                                          int cols_p, bool vec, int tid, int nthreads) {
-  const int chunks = cols_p / 8;
-  for (int i = tid; i < rows_p * chunks; i += nthreads) {
-    const int r = i / chunks, c = i % chunks;
-    bf16* d = dst + r * ld + c * 8;
-    if (vec) {
-      const bool ok = r < rows && c * 8 < cols;
-      mma::cp_async_16(d, ok ? src + r * rs + c * 8 : src, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const int col = c * 8 + e;
-        d[e] = r < rows && col < cols ? src[r * rs + col * cs] : __float2bfloat16(0.f);
-      }
-    }
-  }
-}
-
 // h_prev chunk: rows d < HD of 16 f32 columns [k0, k0 + 16) of a (hd, st)
 // source, zero past hd and st.  A row is four 16-byte groups, group c stored at
 // c ^ (d & 2): the float2 fragment reads of a half-warp (rows g, g + 1, g + 2,
@@ -424,19 +400,6 @@ __device__ __forceinline__ void load_h_chunk(float* dst, const float* src, int h
         out[e] = d < hd && s + e < st ? src[(long long)d * st + s + e] : 0.f;
     }
   }
-}
-
-// v rounded to bf16 (hi) and the rest of v rounded to bf16 (lo), two columns
-// of a fragment in one register each
-__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = mma::pack_bf16(v0 - hf.x, v1 - hf.y);
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // QT: 16-row q tiles (4 for Q <= 64, 8 for Q <= 128); HD: head_dim padded to
@@ -474,8 +437,8 @@ ssd_bf16_kernel(const SsdPtrs p, const SsdArgs a, const int vec, const int out_b
   auto load_head = [&](int j) {  // x, cum and dt of the slot's head j into stage j % NX
     const int h = head(j);
     const int stage = (j % NX) * SLOTS + slot;
-    load_rows(xring + stage * QP * LDX, LDX, xb + h * a.xs[2], a.xs[1], a.xs[3], a.Q, a.hd, QP,
-              HD, vec, stid, SLOT_THREADS);
+    mma::load_rows(xring + stage * QP * LDX, LDX, xb + h * a.xs[2], a.xs[1], a.xs[3], a.Q, a.hd,
+                   QP, HD, vec, stid, SLOT_THREADS);
     float* f = fring + stage * 2 * QP;
     for (int r = stid; r < QP; r += SLOT_THREADS) {
       const bool ok = r < a.Q;
@@ -497,10 +460,10 @@ ssd_bf16_kernel(const SsdPtrs p, const SsdArgs a, const int vec, const int out_b
                      SLOT_THREADS);
   };
 
-  load_rows(Cs, LDC, static_cast<const bf16*>(p.C) + bc * a.cs[0], a.cs[1], a.cs[2], a.Q, a.st,
-            QP, KCH * 16, vec, tid, kThreads);
-  load_rows(Bs, LDC, static_cast<const bf16*>(p.B) + bc * a.bs[0], a.bs[1], a.bs[2], a.Q, a.st,
-            QP, KCH * 16, vec, tid, kThreads);
+  mma::load_rows(Cs, LDC, static_cast<const bf16*>(p.C) + bc * a.cs[0], a.cs[1], a.cs[2], a.Q,
+                 a.st, QP, KCH * 16, vec, tid, kThreads);
+  mma::load_rows(Bs, LDC, static_cast<const bf16*>(p.B) + bc * a.bs[0], a.bs[1], a.bs[2], a.Q,
+                 a.st, QP, KCH * 16, vec, tid, kThreads);
   mma::cp_async_commit();
   if constexpr (FUSED) {
 #pragma unroll
@@ -581,8 +544,8 @@ ssd_bf16_kernel(const SsdPtrs p, const SsdArgs a, const int vec, const int out_b
         const float w1 = diag && u + 1 > q0 ? 0.f : S[i][n][1] * exp2f((cq0 - cu.y) * kLog2e) * du.y;
         const float w2 = diag && u > q1 ? 0.f : S[i][n][2] * exp2f((cq1 - cu.x) * kLog2e) * du.x;
         const float w3 = diag && u + 1 > q1 ? 0.f : S[i][n][3] * exp2f((cq1 - cu.y) * kLog2e) * du.y;
-        split_bf16(w0, w1, hi[2 * n], lo[2 * n]);          // a0 / a2: row g
-        split_bf16(w2, w3, hi[2 * n + 1], lo[2 * n + 1]);  // a1 / a3: row g + 8
+        mma::split_bf16(w0, w1, hi[2 * n], lo[2 * n]);          // a0 / a2: row g
+        mma::split_bf16(w2, w3, hi[2 * n + 1], lo[2 * n + 1]);  // a1 / a3: row g + 8
       }
       const bf16* xrow = xs + (kc * 16 + mma::a_row(lane)) * LDX + mma::a_col(lane);
 #pragma unroll
@@ -662,7 +625,7 @@ ssd_bf16_kernel(const SsdPtrs p, const SsdArgs a, const int vec, const int out_b
         issue(i + kHDist);
         mma::cp_async_commit();
         mma::cp_async_wait<kHDist>();  // step i has landed, for this thread
-        bar_sync(1 + slot, SLOT_THREADS);  // ... and for the whole slot
+        mma::bar_sync(1 + slot, SLOT_THREADS);  // ... and for the whole slot
         const float* hs = hring + ((i % kHStages) * SLOTS + slot) * HD * 16;
         uint32_t ca[4], cb[4];
         mma::ldmatrix_x4(ca, Cs + (ra * 16 + mma::a_row(lane)) * LDC + kc * 16 + mma::a_col(lane));
@@ -675,8 +638,8 @@ ssd_bf16_kernel(const SsdPtrs p, const SsdArgs a, const int vec, const int out_b
           const float2 v1 =
               *reinterpret_cast<const float2*>(row + (((2 + (t >> 1)) ^ (g & 2)) << 2));
           uint32_t hi0, lo0, hi1, lo1;
-          split_bf16(v0.x, v0.y, hi0, lo0);
-          split_bf16(v1.x, v1.y, hi1, lo1);
+          mma::split_bf16(v0.x, v0.y, hi0, lo0);
+          mma::split_bf16(v1.x, v1.y, hi1, lo1);
           mma::mma_bf16(acc[0][n], ca, hi0, hi1);
           mma::mma_bf16(acc[0][n], ca, lo0, lo1);
           mma::mma_bf16(acc[1][n], cb, hi0, hi1);
@@ -690,7 +653,7 @@ ssd_bf16_kernel(const SsdPtrs p, const SsdArgs a, const int vec, const int out_b
       if (j + 1 < n_heads) load_head(j + 1);
       mma::cp_async_commit();
       mma::cp_async_wait<1>();  // head j's stage has landed, for this thread
-      bar_sync(1 + slot, SLOT_THREADS);  // ... and for the whole slot
+      mma::bar_sync(1 + slot, SLOT_THREADS);  // ... and for the whole slot
 #pragma unroll
       for (int r = 0; r < 2; ++r)
 #pragma unroll
@@ -698,7 +661,8 @@ ssd_bf16_kernel(const SsdPtrs p, const SsdArgs a, const int vec, const int out_b
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[r][n][e] = 0.f;
       finish_head(j, acc);
-      bar_sync(1 + slot, SLOT_THREADS);  // the slot is done with this stage before it is refilled
+      // the slot is done with this stage before it is refilled
+      mma::bar_sync(1 + slot, SLOT_THREADS);
     }
   }
 }

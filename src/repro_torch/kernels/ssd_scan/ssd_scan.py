@@ -9,11 +9,13 @@ passes.  ``ssd_chunk_scan_bwd`` is its backward, which the JAX package does
 not have (it trains through its jnp path).  The sources' headers say what
 bounds them and how the designs answer that.
 
-bf16 runs on the tensor cores, f32 on the CUDA cores.  The bf16 kernel copies
-rows of x, B and C 16 bytes at a time where their lengths (head_dim, d_state)
-are multiples of 8 elements; such a tensor must then have a contiguous last
-dim and 16-byte aligned rows, and the wrappers raise otherwise rather than
-copy it.  Rows of other lengths are read element by element.
+bf16 runs on the tensor cores, f32 on the CUDA cores (and so does the
+backward of bf16 inputs with an f32 dy).  The bf16 kernels copy rows of x, B
+and C (and the backward's dy) 16 bytes at a time where their lengths
+(head_dim, d_state) are multiples of 8 elements; such a tensor must then have
+a contiguous last dim and 16-byte aligned rows, and the wrappers raise
+otherwise rather than copy it.  Rows of other lengths are read element by
+element.
 """
 
 from __future__ import annotations
@@ -28,8 +30,11 @@ from .. import _build
 MAX_CHUNK = 128       # Q, the rows of a chunk
 MAX_HEAD_DIM = 128
 MAX_STATE = 512
-#: state columns of a block of the backward's inter-chunk launch (ssd_scan_bwd.cu kStTile)
+#: state columns of a block of the backward's inter-chunk launch: the CUDA-core
+#: kernels' (ssd_scan_bwd.cu kStTile), and the tensor-core kernels' at Q <= 64
+#: and d_state > 64 (8 warps of 16 columns; else 8 of 8, as BWD_STATE_TILE)
 BWD_STATE_TILE = 64
+BWD_STATE_TILE_WIDE = 128
 #: blocks the backward aims at for each SM: it splits the heads into groups
 #: until each of its two per-head launches has at least this many a SM
 BWD_BLOCKS_PER_SM = 2
@@ -57,7 +62,7 @@ def _scan_fn():
 def _bwd_fn():
     fn = _build.library().ssd_chunk_scan_bwd
     fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p] + \
-        [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -189,25 +194,33 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor, B: torc
 ssd_chunk_scan.launches = 0
 
 
-def bwd_plan(bc: int, nh: int, st: int, sms: int) -> tuple[int, int, int, int]:
-    """The backward's head groups: (inter groups, heads a group, intra groups,
-    heads a group).  Each per-head launch (inter: bc x state tiles blocks;
-    intra: bc) splits its heads into the fewest groups that give it
-    ``BWD_BLOCKS_PER_SM`` blocks a SM, and no empty group."""
+def bwd_state_tile(Q: int, st: int, tensor_cores: bool) -> int:
+    """State columns of a block of the backward's inter launch."""
+    return BWD_STATE_TILE_WIDE if tensor_cores and Q <= 64 and st > 64 else BWD_STATE_TILE
+
+
+def bwd_plan(bc: int, Q: int, nh: int, st: int, sms: int,
+             tensor_cores: bool) -> tuple[int, int, int, int, int]:
+    """The backward's launch plan: (state tiles of an inter block, inter
+    groups, heads a group, intra groups, heads a group).  Each per-head launch
+    (inter: bc x state tiles blocks; intra: bc) splits its heads into the
+    fewest groups that give it ``BWD_BLOCKS_PER_SM`` blocks a SM, and no
+    empty group.  ``tensor_cores``: the bf16 kernels (bf16 inputs and dy)."""
 
     def groups(blocks):
         g = min(nh, max(1, -(-BWD_BLOCKS_PER_SM * sms // blocks)))
         per = -(-nh // g)
         return -(-nh // per), per
 
-    return (*groups(bc * -(-st // BWD_STATE_TILE)), *groups(bc))
+    tiles = -(-st // bwd_state_tile(Q, st, tensor_cores))
+    return (tiles, *groups(bc * tiles), *groups(bc))
 
 
-def bwd_workspace(bc: int, Q: int, nh: int, st: int, g_inter: int, g_intra: int) -> int:
+def bwd_workspace(bc: int, Q: int, nh: int, st: int, tiles: int, g_inter: int,
+                  g_intra: int) -> int:
     """f32 elements of the backward's workspace (``csrc/ssd_scan_bwd.cu``):
     dcum's inter part per state tile, dC's per inter group, dS per intra
     group, dD per batch-chunk."""
-    tiles = -(-st // BWD_STATE_TILE)
     return bc * tiles * Q * nh + g_inter * bc * Q * st + g_intra * bc * Q * Q + bc * nh
 
 
@@ -218,9 +231,10 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor, B: 
     (dx, ddt, dcum, dB, dC, dh_prev, dD), contiguous, in the inputs' layout;
     dx, dB and dC in the inputs' dtype, the rest f32 (the formulas are
     ``ref.ssd_chunk_scan_bwd``'s).  Inputs as for :func:`ssd_chunk_scan`
-    (x, B and C read through their strides, element by element); dy contiguous,
-    in float32 or the inputs' dtype.  Deterministic: two calls give the same
-    bits.
+    (x, B and C read through their strides; bf16: see the module's note on
+    16-byte rows, which binds dy too); dy contiguous, in float32 or the
+    inputs' dtype.  bf16 inputs and dy run on the tensor cores, anything else
+    on the CUDA cores.  Deterministic: two calls give the same bits.
     """
     _check_chunks(x, dt, cum, B, C, h_prev, D, nc, s, "ssd_chunk_scan_bwd")
     bc, Q, nh, hd = x.shape
@@ -237,16 +251,22 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor, B: 
     grads = (out((bc, Q, nh, hd), x.dtype), out((bc, Q, nh)), out((bc, Q, nh)),
              out((bc, Q, st), x.dtype), out((bc, Q, st), x.dtype), out((bc, nh, hd, st)),
              out((nh,)))
+    tensor_cores = x.dtype == dy.dtype == torch.bfloat16
+    vec = tensor_cores and _vec_rows(x, B, C, "ssd_chunk_scan_bwd")
+    for name, t, copied in (("dy", dy, vec), ("h_prev", h_prev, tensor_cores and st % 4 == 0)):
+        if copied and t.data_ptr() % 16:
+            raise ValueError(f"ssd_chunk_scan_bwd: the bf16 kernels copy 16-byte rows, but {name} "
+                             f"has data pointer {t.data_ptr()}")
     if x.numel() == 0:
         return tuple(g.zero_() for g in grads)
-    plan = bwd_plan(bc, nh, st, _build.sm_count(x.device))
-    ws = out((bwd_workspace(bc, Q, nh, st, plan[0], plan[2]),))
+    plan = bwd_plan(bc, Q, nh, st, _build.sm_count(x.device), tensor_cores)
+    ws = out((bwd_workspace(bc, Q, nh, st, plan[0], plan[1], plan[3]),))
     code = _bwd_fn()(
         x.data_ptr(), dt.data_ptr(), cum.data_ptr(), B.data_ptr(), C.data_ptr(),
         h_prev.data_ptr(), D.data_ptr(), dy.data_ptr(), *(g.data_ptr() for g in grads),
         ws.data_ptr(), bc, nc, s, Q, nh, hd, st, _strides(x, dt, cum, B, C),
-        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[dy.dtype], *plan, x.device.index,
-        _build.stream_handle(x),
+        _build.DTYPE_CODES[x.dtype], _build.DTYPE_CODES[dy.dtype], int(vec), *plan,
+        x.device.index, _build.stream_handle(x),
     )
     _build.check(code, "ssd_chunk_scan_bwd")
     ssd_chunk_scan_bwd.launches += 1

@@ -435,19 +435,25 @@ def test_coded_step_matches_jax(ref, arch):
 @pytest.mark.parametrize("bc,nh,st", [(512, 64, 128), (192, 64, 128), (16, 80, 64),
                                       (16, 64, 128), (1, 3, 5), (4096, 2, 512)])
 def test_backward_plan_covers_every_head_once(bc, nh, st):
+    """For the CUDA-core kernels (64-column state tiles) and the tensor-core
+    ones (128 columns at Q <= 64 and d_state > 64, else 64), at Q 64 and 128."""
     sms = 132
-    g_inter, hpb_inter, g_intra, hpb_intra = ssd_kernels.bwd_plan(bc, nh, st, sms)
-    tiles = -(-st // ssd_kernels.BWD_STATE_TILE)
     aim = ssd_kernels.BWD_BLOCKS_PER_SM * sms
-    for g, per, blocks in ((g_inter, hpb_inter, bc * tiles), (g_intra, hpb_intra, bc)):
-        assert 1 <= g <= nh and (g - 1) * per < nh <= g * per  # every head once, no empty group
-        # the heads a group takes: as many as the fewest groups that reach the aim
-        # would, or one when even a group a head falls short of it
-        wanted = min(nh, -(-aim // blocks))
-        assert per == -(-nh // wanted)
-    Q = 64
-    assert ssd_kernels.bwd_workspace(bc, Q, nh, st, g_inter, g_intra) == (
-        bc * tiles * Q * nh + g_inter * bc * Q * st + g_intra * bc * Q * Q + bc * nh)
+    for Q in (64, 128):
+        for tensor_cores in (False, True):
+            tiles, g_inter, hpb_inter, g_intra, hpb_intra = ssd_kernels.bwd_plan(
+                bc, Q, nh, st, sms, tensor_cores)
+            width = 128 if tensor_cores and Q <= 64 and st > 64 else 64
+            assert tiles == -(-st // width)
+            for g, per, blocks in ((g_inter, hpb_inter, bc * tiles), (g_intra, hpb_intra, bc)):
+                # every head once, no empty group
+                assert 1 <= g <= nh and (g - 1) * per < nh <= g * per
+                # the heads a group takes: as many as the fewest groups that reach
+                # the aim would, or one when even a group a head falls short of it
+                wanted = min(nh, -(-aim // blocks))
+                assert per == -(-nh // wanted)
+            assert ssd_kernels.bwd_workspace(bc, Q, nh, st, tiles, g_inter, g_intra) == (
+                bc * tiles * Q * nh + g_inter * bc * Q * st + g_intra * bc * Q * Q + bc * nh)
 
 
 # -- on the card ---------------------------------------------------------------------
