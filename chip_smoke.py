@@ -136,6 +136,22 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       3 steps: exactly 108 / 54 fused-scan, 18 / 9 attention
                       (head dim 80) and 253 / 127 RMSNorm launches a step,
                       finite losses, step ms, peak memory;
+ 11d. slice-moe-train -- the same trainer at full qwen2-moe-a2.7b width, its
+                      depth the largest at which two models' training state
+                      and a step's activations (read from train-full's GC
+                      peak) fit the card, the reckoning printed: exactly 2L /
+                      L attention (head dim 128) and 4L+1 / 2L+1 RMSNorm
+                      launches a step, each layer's routing recorded once a
+                      step and no (token, expert) pair dropped (each coded
+                      chunk is its own capacity groups), a profiled step with
+                      the moe layers as categories; two identical bf16 coded
+                      gradients bit for bit the same; the launch entry point's
+                      uncoded and (4, 1)-GC steps at that depth and at full
+                      mixtral-8x22b width cut to 1 layer (the uncoded group of
+                      512 tokens drops pairs, the coded chunks none); then the
+                      f32 coded gradient at 2 layers against the plain path,
+                      routing pinned, and against the sum of each chunk's
+                      chunk_loss_sum gradient, each chunk in its own forward;
  12. gate_window   -- both gate-window kernels against their plain versions,
                       exact, over windows of 0-32 rows (every row bucket's
                       edges), ragged n, (4096, 3, 256) and 5,000 cells (past
@@ -179,8 +195,10 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       rates and share of that bound; attention in bf16 and f32
                       at the prefill's and the coded step's shapes, with SDPA
                       (or its autograd) and each kernel's ptxas line, at
-                      head dim 80 at zamba2-2.7b's prefill shape, and its
-                      forward at qwen2-moe-a2.7b's (8, 16, 500, 128), at
+                      head dim 80 at zamba2-2.7b's prefill shape, the bf16
+                      backward at qwen2-moe-a2.7b's coded step's (128, 16, 64,
+                      128), and its forward at qwen2-moe-a2.7b's (8, 16, 500,
+                      128), at
                       paligemma-3b's (8, 8, 500, 256) with kv (8, 1, 500,
                       256), causal, and hubert-xlarge's non-causal (8, 16,
                       500, 80); both
@@ -292,6 +310,17 @@ TRAIN_SEQS = TRAIN["n"] * (TRAIN_SCHEMES["gc"]["s"] + 1) * TRAIN["batch"] // TRA
 TRAIN_ROWS = TRAIN_SEQS * TRAIN["seq"]
 # M-SGC's coded view (B 1, W 2, lambda 2): 48 sequences a step
 MSGC_ROWS = 48 * TRAIN["seq"]
+# [slice-moe-train]: qwen2-moe-a2.7b's attention in GC's coded step, q, k, v
+# (128, 16, 64, 128) causal, and in M-SGC's (48 sequences); the trainer's
+# depth, fixed so that the cell compares across changes (two models' training
+# state is 56.0 GB at 3 layers, 69.7 GB at 4, see _slice_moe_train); the depth
+# of the f32 gradient checks; mixtral-8x22b cut to 1 layer (one model's
+# training state, ~35 GB)
+ATTN_DH128_TRAIN = (TRAIN_SEQS, 16, 16, TRAIN["seq"], TRAIN["seq"], 128, True, 0, None)
+ATTN_DH128_MSGC = (MSGC_ROWS // TRAIN["seq"], *ATTN_DH128_TRAIN[1:])
+MOE_TRAIN = dict(layers=3, grad_layers=2, mixtral_layers=1)
+# the share of the card's memory a trainer run's peak may fill
+TRAIN_MEMORY_SHARE = 0.9
 # the simulator: benchmarks/run.py's Table-1 grid (PARAMS, the GE chain calibrated
 # to Fig. 1, 64 traces of 44 rounds at n 256, alpha 8 = the source's slope)
 SIM = dict(n=256, traces=64, rounds=44, alpha=8.0, seed0=60, parity_traces=4)
@@ -523,10 +552,11 @@ def main() -> None:
         return err
 
     # 3. rmsnorm kernel vs plain, at every width a serving slice runs it (the
-    # moe slice's prefill and decode rows too, and hubert-xlarge's forward) and
-    # a few others
+    # moe slice's prefill and decode rows too, and hubert-xlarge's forward),
+    # at qwen2-moe-a2.7b's GC and M-SGC coded steps, and a few others
     for rows, d in [(BATCH * PROMPT_LEN, 896), (BATCH, 896), (130, 640), (1, 8192),
-                    (BATCH * PROMPT_LEN, 2048), (BATCH, 2048),
+                    (BATCH * PROMPT_LEN, 2048), (BATCH, 2048), (TRAIN_ROWS, 2048),
+                    (MSGC_ROWS, 2048),
                     (MIXTRAL["batch"] * MIXTRAL["prompt"], 6144), (MIXTRAL["batch"], 6144),
                     (BATCH * PROMPT_LEN, 1280)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -566,6 +596,7 @@ def main() -> None:
     cases += [c + (dtype, True) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES)
               for dtype in (torch.float32, torch.bfloat16)]
     cases += [c + (dtype, True) for c in (ATTN_DH128_SERVED, ATTN_MIXTRAL_SERVED,
+                                          ATTN_DH128_TRAIN, ATTN_DH128_MSGC,
                                           ATTN_DH256_SERVED, *ATTN_DH256_CASES,
                                           ATTN_AUDIO_SERVED)
               for dtype in (torch.float32, torch.bfloat16)]
@@ -612,7 +643,8 @@ def main() -> None:
         (1, 4, 2, 256, 256, dh, True, 96, None, torch.float32),
         (1, 8, 1, 200, 200, dh, False, 0, None, torch.float32),
     ] + [c + (torch.bfloat16,) for c in ATTN_BF16_EDGES] + \
-        [c + (dtype,) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES)
+        [c + (dtype,) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES, ATTN_DH128_TRAIN,
+                                ATTN_DH128_MSGC)
          for dtype in (torch.float32, torch.bfloat16)]
     for b, h, g_kv, sq, sk, dh_, causal, window, valid_k, dtype in bwd_cases:
         q, do = (heads_view(b, h, sq, dh_, dtype) for _ in range(2))
@@ -625,10 +657,12 @@ def main() -> None:
         err = max(compare("attention-bwd", f"{name} q {tuple(q.shape)} kv {tuple(k.shape)} "
                           f"{dtype} {kw}", a, bb, ATTN_TOL[_dtype_name(dtype)])
                   for name, a, bb in zip(("dq", "dk", "dv"), got, want))
-        if (b, dtype) == (TRAIN_SEQS, torch.bfloat16):
+        if (b, dh_, dtype) == (TRAIN_SEQS, dh, torch.bfloat16):
             errs["flash_attention_bwd"] = err
         if (b, sq, dh_, dtype) == (BATCH, PROMPT_LEN, 80, torch.bfloat16):
             errs["flash_attention_bwd dh80"] = err
+        if (b, h, sq, dh_, dtype) == (*ATTN_DH128_TRAIN[:2], TRAIN["seq"], 128, torch.bfloat16):
+            errs["flash_attention_bwd dh128"] = err
     # q = k = v in bf16: a near one-hot softmax, where dP - D cancels on the
     # diagonal; against autograd of the f32 plain version on the same values
     for b, h, g_kv in ((2, 4, 4), (TRAIN_SEQS, hq, hkv)):
@@ -734,6 +768,11 @@ def main() -> None:
     # 11c. slice-hybrid-train: full-width zamba2-2.7b through the launch entry point
     _train_arch_phase("slice-hybrid-train", dev, hcfg)
 
+    # 11d. slice-moe-train: the trainer at full qwen2-moe-a2.7b width and 3
+    # layers (two models fit), the entry point's steps there and at
+    # mixtral-8x22b's full width, the f32 gradient checks
+    moe_train_launches = _slice_moe_train(dev)
+
     # 12-15. the simulator's device path: the gate-window kernels, the
     # Table-1 grid, App.-J selection and the adaptive trainer
     errs.update(_gate_window_check(dev))
@@ -781,6 +820,11 @@ def main() -> None:
         row["launches_of"] = of
         row["max_abs_err"] = errs[_attn_err_key(served[5], served[6])]
         rows.append(row)
+    row = _attention_bwd_timing(ATTN_DH128_TRAIN, heads_view, ptxas)
+    row["launches"] = moe_train_launches["flash_attention_bwd"]
+    row["launches_of"] = f"[slice-moe-train] ({MOE_ARCH} coded training, gc and m-sgc)"
+    row["max_abs_err"] = errs["flash_attention_bwd dh128"]
+    rows.append(row)
     rows += _training_timings(dev, cfg, randn, ptxas)
     rows += _gate_window_timings(dev)
     rows += _ssd_timing(dev)
@@ -809,7 +853,8 @@ def main() -> None:
 
 def _rmsnorm_bwd_check(dev, cfg, randn, compare) -> float:
     """The RMSNorm backward kernel against autograd of the plain version, in f32
-    and bf16 with gamma in f32 and bf16: the coded steps' shapes, every bucket
+    and bf16 with gamma in f32 and bf16: the coded steps' shapes (qwen2-0.5b's
+    and qwen2-moe-a2.7b's), every bucket
     of warps a row (d 896 to 8192), the chunked path (f32 at 8192, a bf16 row of
     200 bytes); dgamma and dx bit-identical over 10 calls; the barrier counters
     at 0 after; one device kernel a call.  Returns the error at the GC step's
@@ -820,8 +865,9 @@ def _rmsnorm_bwd_check(dev, cfg, randn, compare) -> float:
     from repro_torch.kernels.rmsnorm.rmsnorm import _counter, rmsnorm_bwd
 
     worst = None
-    for rows, d in [(TRAIN_ROWS, cfg.d_model), (MSGC_ROWS, cfg.d_model), (130, 640), (3, 100),
-                    (2048, 2048), (1024, 4096), (512, 8192)]:
+    for rows, d in [(TRAIN_ROWS, cfg.d_model), (MSGC_ROWS, cfg.d_model), (TRAIN_ROWS, 2048),
+                    (MSGC_ROWS, 2048), (130, 640), (3, 100), (2048, 2048), (1024, 4096),
+                    (512, 8192)]:
         for dtype in (torch.float32, torch.bfloat16):
             for gdtype in (torch.float32, torch.bfloat16):
                 x, dy = randn(rows, d, dtype=dtype), randn(rows, d, dtype=dtype)
@@ -953,20 +999,28 @@ def _per_step(cfg) -> dict:
 
 
 def _train_full(dev, cfg, phase="train-full", seq=TRAIN["seq"],
-                report=("rmsnorm_bwd", "flash_attention_bwd")) -> dict:
+                report=("rmsnorm_bwd", "flash_attention_bwd"), peaks=None) -> dict:
     """VectorizedCodedTrainer at full width for each scheme, over sequences of
     ``seq`` tokens; returns the launches of the ``report`` kernels over both
-    runs."""
+    runs, and puts each scheme's peak memory into ``peaks`` where given.  A
+    run fails past ``TRAIN_MEMORY_SHARE`` of the card's memory.  A moe model
+    runs under a route log: each step records each layer once and drops no
+    (token, expert) pair, its chunks being its groups; its profiled step
+    shows the moe layers as categories of their own."""
+    import contextlib
+
     import numpy as np
     import torch
 
     from repro_torch.core import GilbertElliotSource, make_scheme
     from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.models.layers import moe_groups, route_log
     from repro_torch.train import VectorizedCodedTrainer
 
     counters = _train_counters()
     per_step = _per_step(cfg)
     totals = dict.fromkeys(report, 0)
+    moe = cfg.family == "moe"
     for name, kw in TRAIN_SCHEMES.items():
         sch = make_scheme(name, TRAIN["n"], TRAIN["jobs"], **kw)
         tr = VectorizedCodedTrainer(scheme=sch, cfg=cfg, num_models=TRAIN["models"],
@@ -1002,11 +1056,18 @@ def _train_full(dev, cfg, phase="train-full", seq=TRAIN["seq"],
         for c in counters.values():
             c.launches = 0
         try:
-            clock = tr.run(TRAIN["jobs"], delays)
+            with route_log() if moe else contextlib.nullcontext() as log:
+                clock = tr.run(TRAIN["jobs"], delays)
         finally:
             rn_ops._RMSNormFn.backward = staticmethod(backward)
         launches = {k: c.launches for k, c in counters.items()}
         peak = torch.cuda.max_memory_allocated()
+        if peaks is not None:
+            peaks[name] = peak
+        room = TRAIN_MEMORY_SHARE * torch.cuda.get_device_properties(dev).total_memory
+        if peak > room:
+            fail(f"{phase} {name}: peak memory {peak} B past {TRAIN_MEMORY_SHARE:g} of the "
+                 f"card's ({room:.0f} B)")
         steps = len(times)
         n_seq = TRAIN["n"] * tr.slots * TRAIN["batch"] // tr.num_chunks
         losses = [x for m in range(TRAIN["models"]) for x in tr.losses[m]]
@@ -1027,10 +1088,23 @@ def _train_full(dev, cfg, phase="train-full", seq=TRAIN["seq"],
                  f"{per_step} per step")
         if steps != TRAIN["jobs"] or not np.isfinite(losses).all():
             fail(f"{phase} {name}: {steps} steps, losses {losses}")
+        if moe:
+            L, drops = cfg.num_layers, log.drops()
+            chunk = TRAIN["batch"] // tr.num_chunks * seq
+            Tg, Cg = moe_groups(chunk, cfg)
+            say(phase, f"{name}: (token, expert) pairs dropped per coded step, by layer, in "
+                       f"chunks of {chunk} tokens (groups Tg {Tg}, Cg {Cg}): "
+                       f"{[drops[i:i + L] for i in range(0, len(drops), L)]}; "
+                       f"{len(log.calls)} routings recorded for {steps} steps x {L} layers")
+            if log.layers != list(range(L)) * steps or any(drops):
+                fail(f"{phase} {name}: routings of layers {log.layers} over {steps} steps, "
+                     f"drops {drops}; expected each layer once a step and no drop")
+            del log
         for k in totals:
             totals[k] += launches[k]
         _breakdown(f"profile {phase} {name} step",
-                   _device_events(lambda: step(*last["args"])), median_ms)
+                   _device_events(lambda: step(*last["args"]), "moe" if moe else None),
+                   median_ms)
         if name == "gc" and phase == "train-full":
             _remat_turns(cfg, tr, step, last["args"])
         del tr, last
@@ -1158,44 +1232,262 @@ def _remat_turns(cfg, tr, step, args) -> None:
 def _coded_gradient_check(dev, cfg) -> None:
     """One f32 coded gradient at 2 layers (full widths and vocab): through
     the kernels against the full-batch gradient and against the plain path."""
+    import torch
+
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.train.coded import coded_loss, value_and_grad
+
+    cfg32 = cfg.replace(dtype="float32", num_layers=2)
+    n = TRAIN["n"]
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(1))
+    batch, coded, w, _ = _coded_job(dev, cfg32.vocab_size)
+    got = value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n), params)
+    for what, fn in (
+        ("full-batch gradient", lambda p: loss_fn(p, cfg32, batch, aux_weight=0.0)),
+        ("plain path's coded gradient", lambda p: coded_loss(p, cfg32, coded, w, n, plain=True)),
+    ):
+        _check_coded_gradient("train-full", f"f32 2-layer coded gradient (stragglers 1, 4, 6)"
+                                            f" vs {what}", got, value_and_grad(fn, params))
+    del got, params
+    torch.cuda.empty_cache()
+
+
+def _check_coded_gradient(phase, what, got, want) -> None:
+    """A coded step's (loss, gradient tree) ``got`` against ``want``: every
+    leaf allclose at ``CODED_GRAD_TOL`` and the losses within 1e-4."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    pairs = list(zip(tree_leaves(got[1]), tree_leaves(want[1])))
+    worst = max(float((a - b).abs().max()) for a, b in pairs)
+    ok = all(torch.allclose(a, b, **CODED_GRAD_TOL) for a, b in pairs)
+    say(phase, f"{what}: loss {float(got[0]):.6f} vs {float(want[0]):.6f}, max_abs_err "
+               f"{worst:.3e} ({CODED_GRAD_TOL}) {'ok' if ok else 'MISMATCH'}")
+    if not ok or abs(float(got[0]) - float(want[0])) > 1e-4:
+        fail(f"{phase}: {what}: the f32 coded gradient disagrees")
+
+
+def _slice_moe_train(dev) -> dict:
+    """[slice-moe-train]: the moe family's training on the card.
+    ``VectorizedCodedTrainer`` at full qwen2-moe-a2.7b width, 2 models, at
+    ``MOE_TRAIN["layers"]`` layers (the reckoning of the depth is printed),
+    GC and M-SGC, no pair dropped; two identical coded gradients bit for bit
+    the same; the launch entry point's uncoded and (4, 1)-GC steps at that
+    depth and at full mixtral-8x22b width cut to 1 layer (the uncoded ones
+    drop pairs, the coded ones none); then the f32 gradient checks at 2
+    layers.  Returns the trainer runs' attention and RMSNorm backward
+    launches."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH)
+    L, models = MOE_TRAIN["layers"], TRAIN["models"]
+    cut = cfg.replace(num_layers=L)
+    peaks = {}
+    totals = _train_full(dev, cut, "slice-moe-train", peaks=peaks)
+    total = torch.cuda.get_device_properties(dev).total_memory
+
+    def state(layers):  # bf16 weight and gradient, f32 AdamW moments
+        return models * 12 * cfg.replace(num_layers=layers).param_count()
+
+    rest = peaks["gc"] - state(L)
+    say("slice-moe-train", f"{cut.name}: depth {L} of {cfg.num_layers}, fixed; {models} models "
+                           f"x 12 B a parameter = {state(L)} B of training state at {L} layers "
+                           f"({cut.param_count()} parameters a model), {state(L + 1)} B at "
+                           f"{L + 1}; max_memory_allocated {peaks} B, the GC step's {rest} B "
+                           f"above its state; {TRAIN_MEMORY_SHARE:g} of the card is "
+                           f"{TRAIN_MEMORY_SHARE * total:.0f} B of {total} B")
+    _moe_determinism(dev, cut)
+    mixtral = get_config(MIXTRAL["arch"])
+    say("slice-moe-train", f"{mixtral.name}: depth cut from {mixtral.num_layers} to "
+                           f"{MOE_TRAIN['mixtral_layers']} layer ({mixtral.param_count()} "
+                           f"params at full depth); its window of {mixtral.sliding_window} "
+                           f"does not bind over sequences of 64 tokens")
+    for c in (cut, mixtral.replace(num_layers=MOE_TRAIN["mixtral_layers"])):
+        _moe_steps(dev, c)
+    _moe_gradient_check(dev, cfg.replace(dtype="float32", num_layers=MOE_TRAIN["grad_layers"]))
+    return totals
+
+
+def _moe_steps(dev, cfg, steps=2) -> None:
+    """The launch entry point's steps (``train_arch``) at ``cfg``'s depth,
+    which ``train_arch`` does not cut: ``make_train_step`` on 8 sequences of
+    64 tokens, uncoded, whose one group of 512 tokens drops pairs, as the JAX
+    package's uncoded step does; then ``make_coded_train_step`` at (4, 1)-GC
+    with a random straggler, whose chunks of 2 x 64 tokens drop none.  Exact
+    launches, drops by layer, step ms, peak memory and finite losses."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_gradient_code
+    from repro_torch.data import gc_chunked_batch, token_batch
+    from repro_torch.models.layers import moe_groups, route_log
+    from repro_torch.train import (gc_round_weights, init_train_state, make_coded_train_step,
+                                   make_train_step)
+
+    counters = _train_counters()
+    per_step = _per_step(cfg)
+    L = cfg.num_layers
+    params, opt = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    n, s = 4, 1
+    code, rng = make_gradient_code(n, s), np.random.default_rng(0)
+    runs = {"uncoded": (make_train_step(cfg), lambda b: (b,), 8 * 64),
+            "(4, 1)-GC": (make_coded_train_step(cfg, n, s),
+                          lambda b: (gc_chunked_batch(b, n, s), gc_round_weights(
+                              code, sorted(rng.choice(n, n - 1, replace=False).tolist())
+                          ).to(dev)), 8 // n * 64)}
+    for what, (step, inputs, group_tokens) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        times, losses = [], []
+        with route_log() as log:
+            for i in range(steps):
+                args = inputs(token_batch(0, i, 8, 64, cfg.vocab_size, device=dev))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, *args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+        launches = {k: c.launches for k, c in counters.items()}
+        drops = log.drops()
+        Tg, Cg = moe_groups(group_tokens, cfg)
+        pairs = group_tokens * cfg.num_experts_per_tok
+        say("slice-moe-train", f"{cfg.name} ({L} layers) {what} steps: step ms "
+                               f"{[round(t * 1e3, 3) for t in times]} (the first with its "
+                               f"warm-up); max_memory_allocated "
+                               f"{torch.cuda.max_memory_allocated()} B; losses "
+                               f"{[round(x, 4) for x in losses]}; pairs dropped by layer in "
+                               f"groups of Tg {Tg} / Cg {Cg} (of {pairs} a group): "
+                               f"{[drops[i:i + L] for i in range(0, len(drops), L)]}")
+        say("slice-moe-train", f"{what}: launches per step "
+                               f"{ {k: v / steps for k, v in launches.items()} } "
+                               f"(expected {per_step})")
+        if any(launches[k] != per_step[k] * steps for k in per_step):
+            fail(f"slice-moe-train {cfg.name} {what}: launches {launches} over {steps} steps, "
+                 f"expected {per_step} per step")
+        if not np.isfinite(losses).all() or log.layers != list(range(L)) * steps:
+            fail(f"slice-moe-train {cfg.name} {what}: losses {losses}, routings of layers "
+                 f"{log.layers}")
+        if (what == "uncoded") != (sum(drops) > 0):
+            fail(f"slice-moe-train {cfg.name} {what}: drops {drops}; pairs drop in the "
+                 f"uncoded step's group of 512 tokens and in no coded chunk")
+    del params, opt, log
+    torch.cuda.empty_cache()
+
+
+def _coded_job(dev, vocab: int):
+    """GC's coded view of job 1 (TRAIN's n, s and batch) with s stragglers
+    (workers 1, 4, 6): (its batch, the coded view, the decode weights, the
+    (n, slots) chunk of each slot)."""
     import numpy as np
     import torch
 
     from repro_torch.core import make_scheme
     from repro_torch.data import coded_slot_batch, token_batch
-    from repro_torch.models import init_params, loss_fn
-    from repro_torch.train.coded import coded_loss, value_and_grad
-    from repro_torch.tree import tree_leaves
 
-    cfg32 = cfg.replace(dtype="float32", num_layers=2)
     n = TRAIN["n"]
     sch = make_scheme("gc", n, 1, **TRAIN_SCHEMES["gc"])
     stragglers = np.zeros(n, dtype=bool)
-    stragglers[[1, 4, 6]] = True  # s = 3 stragglers
+    stragglers[[1, 4, 6]] = True
     sch.step(1, stragglers)
     (jd,) = sch.collect_decodes(1)
-    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(1))
-    batch = token_batch(0, 1, TRAIN["batch"], TRAIN["seq"], cfg32.vocab_size, device=dev)
-    coded = coded_slot_batch(batch, sch.chunk_slots(1), n)
+    batch = token_batch(0, 1, TRAIN["batch"], TRAIN["seq"], vocab, device=dev)
+    slots = sch.chunk_slots(1)
     w = torch.from_numpy(sch.decode_weights(jd)).to(dev)
-    got = value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n), params)
-    for what, plain, fn in (
-        ("full-batch gradient", False, lambda p: loss_fn(p, cfg32, batch, aux_weight=0.0)),
-        ("plain path's coded gradient", True, lambda p: coded_loss(p, cfg32, coded, w, n,
-                                                                    plain=True)),
-    ):
-        want = value_and_grad(fn, params)
-        worst = max(float((a - b).abs().max()) for a, b in
-                    zip(tree_leaves(got[1]), tree_leaves(want[1])))
-        ok = all(torch.allclose(a, b, **CODED_GRAD_TOL) for a, b in
-                 zip(tree_leaves(got[1]), tree_leaves(want[1])))
-        say("train-full", f"f32 2-layer coded gradient (stragglers {np.flatnonzero(stragglers)})"
-                          f" vs {what}: loss {float(got[0]):.6f} vs {float(want[0]):.6f}, "
-                          f"max_abs_err {worst:.3e} ({CODED_GRAD_TOL}) {'ok' if ok else 'MISMATCH'}")
-        if not ok or abs(float(got[0]) - float(want[0])) > 1e-4:
-            fail(f"train-full: the f32 coded gradient disagrees with the {what}")
-        del want
-    del got, params
+    return batch, coded_slot_batch(batch, slots, n), w, slots
+
+
+def _moe_determinism(dev, cfg) -> None:
+    """Two identical bf16 coded gradients at GC's coded shape (value and
+    gradient of ``coded_loss`` from the same parameters and inputs), through
+    the kernels: every leaf bit for bit the same."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.train.coded import coded_loss, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(2))
+    _, coded, w, _ = _coded_job(dev, cfg.vocab_size)
+    runs = [value_and_grad(lambda p: coded_loss(p, cfg, coded, w, TRAIN["n"]), params)
+            for _ in range(2)]
+    leaves = list(zip(tree_leaves(runs[0][1]), tree_leaves(runs[1][1])))
+    differ = sum(not torch.equal(a, b) for a, b in leaves)
+    say("slice-moe-train", f"{cfg.name} ({cfg.num_layers} layers) bf16 coded gradient twice "
+                           f"from the same state, {TRAIN_SEQS} x {TRAIN['seq']} tokens: "
+                           f"{len(leaves) - differ} of {len(leaves)} leaves bit-identical, "
+                           f"losses {float(runs[0][0])!r} / {float(runs[1][0])!r}")
+    if differ or float(runs[0][0]) != float(runs[1][0]):
+        fail(f"slice-moe-train: {differ} gradient leaves differ between two identical steps")
+    del runs, leaves, params
+    torch.cuda.empty_cache()
+
+
+def _moe_gradient_check(dev, cfg32) -> None:
+    """f32 coded gradient of ``cfg32`` (full width, cut depth) at GC's coded
+    shape with s stragglers: through the kernels against the plain path with
+    the routing pinned to the kernel path's, and against the sum of each
+    chunk's ``chunk_loss_sum`` gradient, each chunk in a forward of its own
+    with its rows' routing pinned to the coded forward's: the JAX package's
+    identity for a coded step, whose chunks are their own capacity groups."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import RouteLog, route_log
+    from repro_torch.train.coded import chunk_loss_sum, coded_loss, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    counters = _train_counters()
+    per_step = _per_step(cfg32)
+    n, L = TRAIN["n"], cfg32.num_layers
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(1))
+    batch, coded, w, slots = _coded_job(dev, cfg32.vocab_size)
+    for c in counters.values():
+        c.launches = 0
+    with route_log() as k_log:
+        got = value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n), params)
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(launches[k] != per_step[k] for k in per_step):
+        fail(f"slice-moe-train: f32 coded gradient launches {launches}, expected {per_step}")
+    what = (f"f32 {L}-layer {cfg32.name} coded gradient (stragglers 1, 4, 6; drops "
+            f"{k_log.drops()}) vs")
+
+    with route_log(RouteLog(replay=k_log)):
+        want = value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n, plain=True), params)
+    _check_coded_gradient("slice-moe-train", f"{what} plain path's, routing pinned", got, want)
+    del want
+    # each chunk alone, pinned to the rows of its first slot in the coded forward
+    cb = TRAIN["batch"] // n
+    rows = cb * TRAIN["seq"]
+    total_loss, total = 0.0, None
+    for chunk in range(n):
+        i, j = (int(x[0]) for x in (slots == chunk).nonzero())
+        start = (i * slots.shape[1] + j) * rows
+        pin = RouteLog()
+        for layer in range(L):
+            idx, _, gap = k_log.call(layer)
+            pin.record(layer, idx[start:start + rows], None, gap[start:start + rows])
+        part = {k: v[chunk * cb:(chunk + 1) * cb] for k, v in batch.items()}
+        with route_log(RouteLog(replay=pin)):
+            loss, grads = value_and_grad(lambda p: chunk_loss_sum(p, cfg32, part), params)
+        total_loss += float(loss)
+        if total is None:
+            total = grads
+        else:
+            for a, b in zip(tree_leaves(total), tree_leaves(grads)):
+                a.add_(b)
+        del grads
+    for a in tree_leaves(total):
+        a.div_(n * cb)
+    _check_coded_gradient("slice-moe-train", f"{what} sum of the {n} chunks' chunk_loss_sum "
+                                             f"gradients, each chunk alone",
+                          got, (total_loss / (n * cb), total))
+    del got, total, params
     torch.cuda.empty_cache()
 
 
@@ -1252,7 +1544,9 @@ def _attention_timings(cfg, heads_view, ptxas) -> list:
         y_plain = fa_ref.attention(qr, kr, vr, causal=True)
         y_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
         pairs = TRAIN_SEQS * hq * TRAIN["seq"] * (TRAIN["seq"] + 1) // 2
-        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, do, q, k, v)) + \
+        # the bf16 kernels take D from P and dP and never read out
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in (q, k, v, do, q, k, v, *(() if bf16 else (out,)))) + \
             lse.numel() * 4
         row = _timed(
             "flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1277,10 +1571,7 @@ def _attention_dh80_timings(heads_view, ptxas) -> list:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention,
-        flash_attention_bwd,
-    )
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention
 
     b, hq, hkv, s, _, dh = ATTN_DH80_SERVED[:6]
     replaces = "src/repro/kernels/flash_attention/flash_attention.py:45"
@@ -1303,25 +1594,53 @@ def _attention_dh80_timings(heads_view, ptxas) -> list:
         if not bf16:
             break
         rows.append(row)
-        out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
-        y_plain = fa_ref.attention(qr, kr, vr, causal=True)
-        y_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
-        n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, out, do, q, k, v)) + \
-            lse.numel() * 4
-        row = _timed(
-            "flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            replaces, tuple(q.shape),
-            lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=True),
-            lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do, retain_graph=True),
-            lambda: torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True),
-            n_bytes, 10 * dh * pairs, op_type, iters=50)
-        _say_attention(row, "backward bf16 at head dim 80", ptxas, f"attn_bwd_dq_{sfx}{dh}>",
-                       f"attn_bwd_dkdv_{sfx}{dh}>")
-        rows.append(row)
-        del y_plain, y_lib, qr, kr, vr
+        rows.append(_attention_bwd_timing(ATTN_DH80_SERVED, heads_view, ptxas, (q, k, v, do)))
     torch.cuda.empty_cache()
     return rows
+
+
+def _attention_bwd_timing(case, heads_view, ptxas, qkv_do=None) -> dict:
+    """The bf16 attention backward at ``case`` (b, hq, hkv, s, s, dh, causal,
+    ...; q, k, v and dO strided as the model passes them, or ``qkv_do``)
+    beside autograd of its plain version and of SDPA, and the bound: q, k,
+    v, dO and lse read once, dq, dk, dv written once (the bf16 kernels take
+    D = rowsum(P * dP) from their own P and dP and never read the forward's
+    output); S again, dP, dV, dQ and dK over the causal (q, k) pairs.  Returns
+    the JSON row."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+
+    b, hq, hkv, s, _, dh, causal = case[:7]
+    if qkv_do is None:
+        q, do = (heads_view(b, hq, s, dh, torch.bfloat16) for _ in range(2))
+        k, v = (heads_view(b, hkv, s, dh, torch.bfloat16) for _ in range(2))
+    else:
+        q, k, v, do = qkv_do
+    pairs = b * hq * (s * (s + 1) // 2 if causal else s * s)
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    y_plain = fa_ref.attention(qr, kr, vr, causal=causal)
+    y_lib = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal, enable_gqa=True)
+    n_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, do, q, k, v)) + \
+        lse.numel() * 4
+    row = _timed(
+        "flash_attention_bwd", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:45", tuple(q.shape),
+        lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=causal),
+        lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do, retain_graph=True),
+        lambda: torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True),
+        n_bytes, 10 * dh * pairs, "bf16_tensor", iters=50)
+    _say_attention(row, f"backward bf16 at head dim {dh}, kv {tuple(k.shape)}, causal {causal}",
+                   ptxas, f"attn_bwd_dq_bf16_kernel<{dh}>", f"attn_bwd_dkdv_bf16_kernel<{dh}>")
+    del y_plain, y_lib, qr, kr, vr
+    torch.cuda.empty_cache()
+    return row
 
 
 def _attention_served_timing(served, heads_view, ptxas) -> dict:

@@ -6,11 +6,18 @@ Two modes:
     Gilbert-Elliott straggler source, reporting the scheme's simulated
     runtime and real training losses (``train_demo``).
   * ``--arch``: uncoded or GC-coded train steps of one model
-    (``train_arch``), at the smoke size or, with ``--full``, at full width.
-    On the card the dense, moe, ssm and hybrid families train (mamba2-1.3b,
-    zamba2-2.7b: the fused SSD chunk scan forward and backward kernels);
-    the vlm needs the attention backward at head dim 256 (ROADMAP B-2b),
-    and hubert-xlarge takes frames, not tokens.
+    (``train_arch``), at the smoke size or, with ``--full``, at full width
+    and full depth.  On the card the dense, moe, ssm and hybrid families
+    train (mamba2-1.3b, zamba2-2.7b: the fused SSD chunk scan forward and
+    backward kernels; qwen2-moe-a2.7b and mixtral-8x22b: attention at head
+    dim 128, the experts through cuBLAS).  At full depth qwen2-moe-a2.7b's
+    training state is ~172 GB and mixtral-8x22b's ~1.7 TB, more than one
+    card holds: ``chip_smoke.py``'s ``[slice-moe-train]`` runs these steps at
+    full width with the depth cut (3 and 1 layers).  The uncoded step's one
+    group of 512 tokens drops (token, expert) pairs, as the JAX package's
+    does; the coded step's chunks of 128 tokens drop none.  The vlm needs
+    the attention backward at head dim 256 (ROADMAP B-2b), and
+    hubert-xlarge takes frames, not tokens.
 
 Runs on the card unless ``--device cpu`` is given; with no card it raises
 rather than fall back.
@@ -18,7 +25,13 @@ rather than fall back.
   PYTHONPATH=src python -m repro_torch.launch.train --demo --scheme m-sgc --jobs 60
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b --steps 3 --coded
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --full --coded
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --coded --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --demo --device cpu
+
+On the CPU, ``tests/test_torch_moe_train.py`` holds the moe family's coded
+and uncoded steps and ``VectorizedCodedTrainer`` to the JAX package at the
+smoke size; on the card, ``chip_smoke.py``'s ``[slice-moe-train]`` runs
+them at full width and cut depth.
 """
 
 from __future__ import annotations

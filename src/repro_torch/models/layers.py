@@ -234,32 +234,63 @@ def moe_groups(T: int, cfg, capacity_factor: float = 1.25,
 
 
 class RouteLog:
-    """The routing of successive ``moe_apply`` calls: for each call its
-    experts ``idx`` (T, K), its ``kept`` mask (T, K) (None where the group
-    runs dropless) and ``gap``, each token's K-th minus (K+1)-th probability
-    (1 where K = E).
+    """The routing of successive ``moe_apply`` calls, keyed by layer: for each
+    call its experts ``idx`` (T, K), its ``kept`` mask (T, K) (None where the
+    group runs dropless) and ``gap``, each token's K-th minus (K+1)-th
+    probability (1 where K = E).
+
+    ``calls`` holds them in call order, one for each layer a pass (a forward,
+    a prefill, a decode step), and ``layers`` each call's layer.  A layer body
+    that runs again in the backward (``_remat``'s recompute, see
+    :func:`recompute_routes`) takes its forward's record and records nothing,
+    so a training step records each layer once.  The recompute reads the
+    record by its place in ``calls``, fixed when its forward ran, so a second
+    forward under the same log before the first's backward (gradient
+    accumulation) does not change what the first's recompute replays.
 
     Checks only: under :func:`route_log` a run records its routing, and a
-    log made with ``replay`` set to another log takes that log's experts for
-    its i-th call in place of its own choice (the kept mask follows from the
-    experts).  That holds two paths' arithmetic against each other where
-    rounding would tip a near tie at the K-th place to another expert."""
+    log made with ``replay`` set to another log takes, for its n-th call of a
+    layer, that log's experts of the n-th call of the same layer in place of
+    its own choice (the kept mask follows from the experts).  That holds two
+    paths' arithmetic against each other where rounding would tip a near tie
+    at the K-th place to another expert."""
 
     def __init__(self, replay: "RouteLog | None" = None):
         self.calls: list[tuple] = []
+        self.layers: list[int] = []
         self.replay = replay
 
-    def experts(self, top: torch.Tensor) -> torch.Tensor:
+    def call(self, layer: int, n: int = -1) -> tuple:
+        """The n-th recorded call of ``layer`` (the last by default)."""
+        return self.calls[[i for i, got in enumerate(self.layers) if got == layer][n]]
+
+    def experts(self, layer: int, top: torch.Tensor) -> torch.Tensor:
         """The call's experts: ``top``, this run's own choice, or the
-        replayed log's choice for the same call."""
-        return top if self.replay is None else self.replay.calls[len(self.calls)][0]
+        replayed log's choice for the same layer and pass."""
+        if self.replay is None:
+            return top
+        return self.replay.call(layer, self.layers.count(layer))[0]
+
+    def record(self, layer: int, idx, kept, gap) -> None:
+        self.calls.append((idx, kept, gap))
+        self.layers.append(layer)
 
     def drops(self) -> list[int]:
         """Dropped (token, expert) pairs of each call."""
         return [0 if kept is None else int((~kept).sum()) for _, kept, _ in self.calls]
 
+    def to(self, device) -> "RouteLog":
+        """A copy of the record (not of ``replay``) with its tensors on ``device``."""
+        log = RouteLog()
+        log.calls = [tuple(None if t is None else t.to(device) for t in c) for c in self.calls]
+        log.layers = list(self.layers)
+        return log
+
 
 _ROUTE_LOG: contextvars.ContextVar = contextvars.ContextVar("route_log", default=None)
+# while a layer body runs again in the backward (``recompute_routes``): the
+# place in the log's ``calls`` of the record its forward made
+_RECOMPUTE: contextvars.ContextVar = contextvars.ContextVar("route_recompute", default=None)
 
 
 @contextlib.contextmanager
@@ -275,7 +306,31 @@ def route_log(log: RouteLog | None = None):
         _ROUTE_LOG.reset(token)
 
 
-def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 1024):
+def recompute_routes():
+    """The context for the backward's recompute of a layer body under
+    activation checkpointing (``models/transformer.py`` ``_remat``), made at
+    the forward: the recompute runs under the forward's route log, read now
+    (the backward may run in another thread, which sees no log), and its
+    ``moe_apply`` takes the record that the forward is about to make, the
+    log's next, and records nothing.  A null context where no log is active."""
+    log = _ROUTE_LOG.get()
+    if log is None:
+        return contextlib.nullcontext()
+    return _recomputing(log, len(log.calls))
+
+
+@contextlib.contextmanager
+def _recomputing(log: RouteLog, index: int):
+    token, again = _ROUTE_LOG.set(log), _RECOMPUTE.set(index)
+    try:
+        yield
+    finally:
+        _RECOMPUTE.reset(again)
+        _ROUTE_LOG.reset(token)
+
+
+def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 1024,
+              segment: int | None = None, layer: int = 0):
     """Top-K token-choice MoE with grouped capacity.
 
     x: (b, s, d) -> ((b, s, d), aux load-balance loss).  The JAX package's
@@ -285,7 +340,16 @@ def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 102
     (:func:`moe_groups`) a token keeps expert e iff fewer than Cg earlier
     tokens of its group chose e; a dropped pair adds nothing and its weight is
     not renormalised away; the shared experts take every token; aux =
-    E * sum_e mean(probs)_e * mean(chosen)_e / K, chosen counted before drops.
+    E * sum_e mean(probs)_e * mean(chosen)_e / K over the whole batch, chosen
+    counted before drops.
+
+    ``segment`` is the token count of one independent segment of the batch,
+    consecutive in its flat (b * s) order: a coded chunk, which the JAX
+    package's coded loss runs through the model on its own (``vmap``).  The
+    groups are taken from one segment, ``moe_groups(segment)``, so none
+    crosses a segment and the result is the JAX package's over each segment
+    alone; the default is the whole batch.  ``layer`` keys the call in a
+    :class:`RouteLog`.
 
     The JAX package forms (G, Tg, E, Cg) one-hot dispatch and combine
     tensors and runs the experts over every one of E * Cg slots; here only the
@@ -308,12 +372,23 @@ def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 102
         b, s, d = x.shape
         E, K = cfg.num_experts, cfg.num_experts_per_tok
         T = b * s
-        Tg, Cg = moe_groups(T, cfg, capacity_factor, group_size)
+        segment = T if segment is None else segment
+        if segment <= 0 or T % segment:
+            raise ValueError(f"segments of {segment} tokens do not split the batch's {T}")
+        Tg, Cg = moe_groups(segment, cfg, capacity_factor, group_size)
         xt = x.reshape(T, d)
         probs = torch.softmax((xt @ p["router"]).float(), dim=-1)               # (T, E)
-        log = _ROUTE_LOG.get()
+        log, again = _ROUTE_LOG.get(), _RECOMPUTE.get()
         ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-        idx = order[:, :K] if log is None else log.experts(order[:, :K])
+        if log is None:
+            idx = order[:, :K]
+        elif again is not None:
+            if log.layers[again] != layer:
+                raise RuntimeError(f"the recompute of layer {layer} found the record of layer "
+                                   f"{log.layers[again]} where its forward's should be")
+            idx = log.calls[again][0]
+        else:
+            idx = log.experts(layer, order[:, :K])
         gate = probs.gather(1, idx)
         gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
 
@@ -323,9 +398,9 @@ def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 102
         if Cg < Tg:
             pos = chosen.view(T // Tg, Tg, E).cumsum(1).view(T, E).gather(1, idx) - 1.0
             kept = pos < Cg
-        if log is not None:
+        if log is not None and again is None:
             gap = ranked[:, K - 1] - ranked[:, K] if K < E else torch.full_like(probs[:, 0], 1.0)
-            log.calls.append((idx, kept, gap.detach()))
+            log.record(layer, idx, kept, gap.detach())
 
         # the kept pairs by expert; a dropped pair sorts last, as expert E
         pair_e = idx.reshape(-1) if kept is None else idx.masked_fill(~kept, E).reshape(-1)
@@ -333,17 +408,25 @@ def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 102
         counts = torch.zeros(E + 1, dtype=torch.long, device=x.device)
         counts = counts.index_add_(0, pair_e, torch.ones_like(pair_e)).tolist()  # host sync
         n = T * K - counts[E]
-        rows = xt[by_e[:n] // K]
-        outs, start = [], 0
-        for wg, wu, wd, c in zip(p["w_gate"].unbind(0), p["w_up"].unbind(0),
-                                 p["w_down"].unbind(0), counts):
-            if c:
-                xe = rows[start:start + c]
+        # each kept pair's row of x, gathered from the (T * K, d) copy of xt
+        # repeated over K, whose rows are the pairs: no index repeats, so the
+        # gather's backward writes each row once and expand's backward sums a
+        # token's K rows in a fixed order (deterministic on the card, where an
+        # accumulating scatter over repeated indices need not be)
+        rows = xt[:, None].expand(T, K, d).reshape(T * K, d)[by_e[:n]]
+        # each expert's rows as one split, whose backward is one concatenation
+        # (a slice's backward would write a zero-padded (n, d) gradient an
+        # expert and add them up)
+        outs = []
+        for wg, wu, wd, xe in zip(p["w_gate"].unbind(0), p["w_up"].unbind(0),
+                                  p["w_down"].unbind(0), rows.split(counts[:E])):
+            if len(xe):
                 outs.append((F.silu(xe @ wg) * (xe @ wu)) @ wd)
-                start += c
         outs.append(xt.new_zeros((1, d)))                  # what a dropped pair reads
         y = torch.cat(outs)                                # (n + 1, d)
-        # each pair's row in y: its place in the sorted order, or the zero row
+        # each pair's row in y: its place in the sorted order, or the zero row.
+        # Only the zero row repeats (once for each dropped pair), and its
+        # gradient is thrown away: it is a constant, not an expert's output.
         slot = torch.empty_like(by_e)
         slot[by_e] = torch.arange(T * K, device=x.device)
         routed = torch.bmm(gate.to(x.dtype)[:, None, :], y[slot.clamp_(max=n)].view(T, K, d))

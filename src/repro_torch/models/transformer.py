@@ -39,7 +39,7 @@ kernel (ROADMAP B-2b), so the vlm family trains on the CPU only for now.
 
 from __future__ import annotations
 
-import functools
+import contextlib
 
 import torch
 from torch.utils import checkpoint as ckpt
@@ -54,6 +54,7 @@ from .layers import (
     mlp_init,
     moe_apply,
     moe_init,
+    recompute_routes,
     rmsnorm_apply,
     rmsnorm_init,
 )
@@ -170,19 +171,22 @@ def _head(params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def _ffn(lp, cfg, x):
-    """The block's feed-forward on x: (out, aux), aux None for the SwiGLU MLP."""
+def _ffn(lp, cfg, x, *, layer=0, segment=None):
+    """The block's feed-forward on x: (out, aux), aux None for the SwiGLU MLP.
+    A moe layer takes its capacity groups within segments of ``segment``
+    tokens (``moe_apply``; None: the whole batch) and is logged as ``layer``."""
     if cfg.family == "moe":
-        return moe_apply(lp["moe"], x, cfg)
+        return moe_apply(lp["moe"], x, cfg, segment=segment, layer=layer)
     return mlp_apply(lp["mlp"], x), None
 
 
-def _layer(lp, cfg, x, *, plain):
+def _layer(lp, cfg, x, *, plain, layer=0, segment=None):
     """One attention block: (x, aux, k, v)."""
     h, (k, v) = attention_apply(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
                                 cfg, plain=plain)
     x = x + h
-    h, aux = _ffn(lp, cfg, rmsnorm_apply(lp["norm2"], x, plain=plain))
+    h, aux = _ffn(lp, cfg, rmsnorm_apply(lp["norm2"], x, plain=plain), layer=layer,
+                  segment=segment)
     return x + h, aux, k, v
 
 
@@ -207,6 +211,14 @@ def _dots_policy(ctx, op, *args, **kwargs):
         ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
+@contextlib.contextmanager
+def _entered_together(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
 def _remat(fn, cfg: ModelConfig):
     """fn under activation checkpointing, as the JAX package's ``_remat``
     wraps a layer body in ``jax.checkpoint``: nothing of its inside is kept
@@ -214,11 +226,17 @@ def _remat(fn, cfg: ModelConfig):
     ("dots", ``checkpoint_dots``), and the rest runs again in the backward.
     ``remat=False`` or policy "none" keeps fn as it is, and so does a call
     with gradients off (prefill and decode, which run under inference mode).
-    The layer bodies draw no random numbers, so no RNG state is kept."""
+    The layer bodies draw no random numbers, so no RNG state is kept.  The
+    recompute runs under the forward's route log, so a moe layer takes the
+    experts its forward chose (``layers.recompute_routes``)."""
     if not cfg.remat or cfg.remat_policy == "none":
         return fn
-    context_fn = (functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
-                  if cfg.remat_policy == "dots" else ckpt.noop_context_fn)
+    dots = cfg.remat_policy == "dots"
+
+    def context_fn():
+        fwd, again = (ckpt.create_selective_checkpoint_contexts(_dots_policy) if dots
+                      else ckpt.noop_context_fn())
+        return fwd, _entered_together(again, recompute_routes())
 
     def wrapped(*args, **kwargs):
         if not torch.is_grad_enabled():
@@ -229,15 +247,16 @@ def _remat(fn, cfg: ModelConfig):
     return wrapped
 
 
-def _stack_forward(params, cfg: ModelConfig, x, *, plain):
+def _stack_forward(params, cfg: ModelConfig, x, *, plain, segment=None):
     """The layer stack: attention blocks, or Mamba2 layers with the hybrid's
     shared block after each group of ``attn_every``.  Returns (x, the sum of
-    the moe layers' aux losses, or None)."""
+    the moe layers' aux losses, or None).  ``segment``: see ``forward``."""
     if cfg.family in _ATTN_FAMILIES:
-        body = _remat(lambda lp, h: _layer(lp, cfg, h, plain=plain)[:2], cfg)
+        body = _remat(lambda lp, h, i: _layer(lp, cfg, h, plain=plain, layer=i,
+                                              segment=segment)[:2], cfg)
         total = None
-        for lp in params["layers"]:
-            x, aux = body(lp, x)
+        for i, lp in enumerate(params["layers"]):
+            x, aux = body(lp, x, i)
             if aux is not None:
                 total = aux if total is None else total + aux
         return x, total
@@ -251,18 +270,27 @@ def _stack_forward(params, cfg: ModelConfig, x, *, plain):
     return x, None
 
 
-def forward(params, cfg: ModelConfig, batch, *, plain: bool = False):
-    """Full-sequence logits. Returns (logits (b, s, vocab), aux_loss)."""
-    x, aux = _stack_forward(params, cfg, embed_inputs(params, cfg, batch), plain=plain)
+def forward(params, cfg: ModelConfig, batch, *, plain: bool = False,
+            segment: int | None = None):
+    """Full-sequence logits. Returns (logits (b, s, vocab), aux_loss).
+
+    ``segment``: the tokens of one independent segment of the batch (a coded
+    chunk's sequences, consecutive in the batch), within which a moe layer
+    takes its capacity groups (``layers.moe_apply``); None, the whole batch.
+    Other families do not read it."""
+    x, aux = _stack_forward(params, cfg, embed_inputs(params, cfg, batch), plain=plain,
+                            segment=segment)
     x = rmsnorm_apply(params["final_norm"], x, plain=plain)
     return x @ _head(params, cfg), torch.zeros((), device=x.device) if aux is None else aux
 
 
-def token_nll(params, cfg: ModelConfig, batch, *, plain: bool = False):
+def token_nll(params, cfg: ModelConfig, batch, *, plain: bool = False,
+              segment: int | None = None):
     """(per-token f32 NLL, aux): next-token (b, s-1) for causal LMs, (b, s)
     otherwise; a vlm's labels cover its text only, so its NLL is the last
-    text - 1 positions'.  Log-softmax in f32 whatever the model dtype."""
-    logits, aux = forward(params, cfg, batch, plain=plain)
+    text - 1 positions'.  Log-softmax in f32 whatever the model dtype.
+    ``segment``: see ``forward``."""
+    logits, aux = forward(params, cfg, batch, plain=plain, segment=segment)
     labels = batch["labels"]
     if cfg.causal:
         logits, labels = logits[:, :-1], labels[:, 1:]
@@ -331,7 +359,7 @@ def prefill(params, cfg: ModelConfig, batch, max_seq: int, *, plain: bool = Fals
     cache = init_cache(cfg, b, max_seq, dtype=x.dtype, device=x.device)
     if cfg.family in _ATTN_FAMILIES:
         for i, lp in enumerate(params["layers"]):
-            x, _, k, v = _layer(lp, cfg, x, plain=plain)
+            x, _, k, v = _layer(lp, cfg, x, plain=plain, layer=i)
             cache["k"][i, :, :, :s] = k
             cache["v"][i, :, :, :s] = v
     else:
@@ -366,7 +394,8 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos: int, *, plain: bool
         raise ValueError(f"pos {pos} outside the cache's {cache[kv[0]].shape[3]} positions")
     if cfg.family in _ATTN_FAMILIES:
         for i, lp in enumerate(params["layers"]):
-            x = _attn_decode_block(lp, cfg, x, cache["k"][i], cache["v"][i], pos, plain=plain)
+            x = _attn_decode_block(lp, cfg, x, cache["k"][i], cache["v"][i], pos, plain=plain,
+                                   layer=i)
     else:
         every = _shared_every(cfg)
         for i, lp in enumerate(params["layers"]):
@@ -382,12 +411,12 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos: int, *, plain: bool
     return (x @ _head(params, cfg))[:, 0], cache
 
 
-def _attn_decode_block(lp, cfg, x, cache_k, cache_v, pos, *, plain):
+def _attn_decode_block(lp, cfg, x, cache_k, cache_v, pos, *, plain, layer=0):
     """One attention block at one token, writing its k, v at ``pos`` of
     ``cache_k`` / ``cache_v`` (b, hkv, max_seq, dh) in place."""
     x = x + attention_decode(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
                              cache_k, cache_v, pos, cfg)
-    return x + _ffn(lp, cfg, rmsnorm_apply(lp["norm2"], x, plain=plain))[0]
+    return x + _ffn(lp, cfg, rmsnorm_apply(lp["norm2"], x, plain=plain), layer=layer)[0]
 
 
 @torch.inference_mode()

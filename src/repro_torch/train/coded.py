@@ -22,7 +22,11 @@ a cancelled worker's is.  Any scheme maps its decode onto such a grid
 
 The JAX package ``vmap``s the chunk loss over the (n, slots) grid; here the
 grid is one batch dimension of n * slots * chunk_bs sequences through one
-forward, and each sequence's mean NLL is weighted by its slot's weight.
+forward, and each sequence's mean NLL is weighted by its slot's weight.  A
+chunk's sequences are consecutive in that batch, and the forward is told a
+chunk's token count (``segment``), so a moe layer takes its capacity groups
+within one chunk, as the JAX package's per-chunk forward does: a worker
+computes its chunk alone.
 """
 
 from __future__ import annotations
@@ -74,10 +78,13 @@ def coded_loss(params, cfg: ModelConfig, coded_batch, weights, num_chunks: int, 
     """Weighted coded loss of the (n, slots, chunk_bs, ...) view (module
     docstring): every sequence's mean token NLL, times its slot's weight,
     summed and divided by ``num_chunks * chunk_bs`` — the sum over slots of
-    ``w[i, j] * chunk_loss_sum(chunk_ij)`` over the same normaliser."""
-    n, slots, cb = coded_batch["tokens"].shape[:3]
+    ``w[i, j] * chunk_loss_sum(chunk_ij)`` over the same normaliser.  Each
+    chunk of ``chunk_bs`` sequences is one segment of the forward (a moe
+    layer's capacity groups stay within it)."""
+    n, slots, cb, seq = coded_batch["tokens"].shape[:4]
     flat = {k: v.reshape(n * slots * cb, *v.shape[3:]) for k, v in coded_batch.items()}
-    nll, _ = token_nll(params, cfg, flat, plain=plain)          # aux_weight = 0
+    nll, _ = token_nll(params, cfg, flat, plain=plain,            # aux_weight = 0
+                       segment=cb * (cfg.prefix_len + seq))
     w = weights.to(nll.device, torch.float32).reshape(-1).repeat_interleave(cb)
     return (w * nll.mean(dim=1)).sum() / (num_chunks * cb)
 

@@ -24,7 +24,13 @@ schemes (and with the JAX package) while the training itself is genuine.
   batch view, whose weighted loss is the decoder.  Any token model whose
   backward runs on the card trains here: the dense, moe, ssm and hybrid
   families (``seq_len`` sets the sequence, so several of a Mamba2 model's
-  chunks, and the state carried between them, can be trained).
+  chunks, and the state carried between them, can be trained).  On one
+  H100, two models train at full depth for qwen2-0.5b and mamba2-1.3b; two
+  full-width qwen2-moe-a2.7b models fit at 3 of their 24 layers, the depth
+  ``chip_smoke.py``'s ``[slice-moe-train]`` reckons and runs (cut with
+  ``cfg.replace(num_layers=...)``).  A moe model's capacity groups are taken
+  within each coded chunk, as the JAX package's per-chunk forward takes
+  them (``coded_loss``).
 * :func:`run_adaptive` — App. K.2 / Fig. 18: train uncoded for a probe
   phase, select coding parameters from the observed delays with the
   lockstep simulator (``core.select_parameters``, on the device), then

@@ -11,29 +11,31 @@ from __future__ import annotations
 def tree_flatten(tree) -> tuple[list, object]:
     """(leaves in depth-first order, a spec that ``tree_unflatten`` takes)."""
     leaves: list = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: walk(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(walk(v) for v in t)
-        leaves.append(t)
-        return None
-
-    return leaves, walk(tree)
+    return leaves, _flatten(tree, leaves)
 
 
 def tree_unflatten(spec, leaves):
-    it = iter(leaves)
+    return _build(spec, iter(leaves))
 
-    def build(s):
-        if isinstance(s, dict):
-            return {k: build(v) for k, v in s.items()}
-        if isinstance(s, (list, tuple)):
-            return type(s)(build(v) for v in s)
-        return next(it)
 
-    return build(spec)
+# Module-level recursion: a nested function that calls itself sits in a
+# reference cycle with its closure, which would keep the leaves (a model's
+# weights, a step's gradients) alive until Python's cycle collector runs.
+def _flatten(t, leaves: list):
+    if isinstance(t, dict):
+        return {k: _flatten(v, leaves) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_flatten(v, leaves) for v in t)
+    leaves.append(t)
+    return None
+
+
+def _build(s, it):
+    if isinstance(s, dict):
+        return {k: _build(v, it) for k, v in s.items()}
+    if isinstance(s, (list, tuple)):
+        return type(s)(_build(v, it) for v in s)
+    return next(it)
 
 
 def tree_leaves(tree) -> list:

@@ -341,10 +341,7 @@ def test_moe_forward_on_card_matches_the_cpu(arch):
 def _to(tree, dev):
     """A parameter tree, or a route log's experts, on ``dev``."""
     if isinstance(tree, tl.RouteLog):
-        log = tl.RouteLog()
-        log.calls = [(idx.to(dev), None if kept is None else kept.to(dev), gap.to(dev))
-                     for idx, kept, gap in tree.calls]
-        return log
+        return tree.to(dev)
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
