@@ -10,8 +10,9 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       fails unless every bf16 attention (head dims 32, 64, 80,
                       128 and 256) and ssd_scan kernel's SASS holds HMMA
                       (tensor-core) instructions and none spills at head dim
-                      64, nor attention at 80 or the forward at 256 (the f32
-                      forward's line at 256 is printed), unless both gate-window
+                      64, nor attention at 80 or 256 (forward, and the bf16 and
+                      f32 backward; their lines, the f32 forward's at 256 and
+                      the dh-128 backward's are printed), unless both gate-window
                       kernels build unspilled in all four row buckets, and
                       unless all 24 RMSNorm backward kernels (four buckets of
                       warps a row and the chunked path, four dtype pairs)
@@ -34,6 +35,10 @@ Phases, one or more printed lines each; any failure exits non-zero:
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
      attention-bwd    at the training shapes, in f32 and bf16, and attention's
                       bf16 edges, and its head-dim-80 cases in f32 and bf16;
+                      at head dim 256 the edges again and paligemma-3b's GC
+                      and M-SGC coded steps' (64 | 48, 8, 320, 256) with kv
+                      (.., 1, 320, 256), f32 and bf16, bit-identical on a
+                      second call;
                       bf16 with q = k = v (a near one-hot softmax)
                       against autograd of the f32 plain version.  The RMSNorm
                       backward also at d 2048, 4096 and 8192, with gamma in
@@ -152,6 +157,18 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       f32 coded gradient at 2 layers against the plain path,
                       routing pinned, and against the sum of each chunk's
                       chunk_loss_sum gradient, each chunk in its own forward;
+ 11e. slice-vlm-train -- ``make_coded_train_step`` on one full-width, full-depth
+                      paligemma-3b (18 layers, MQA 8/1 at head dim 256, tied
+                      vocab of 257,216) in bf16: sequences of 256 seeded patch
+                      embeddings + 64 text tokens, GC (s 3, 64 sequences a
+                      step) and M-SGC (B 1, W 2, lambda 2, 48), 3 steps each:
+                      exactly 36 / 18 attention and 73 / 37 RMSNorm launches
+                      a step, finite losses, step ms, the peak beside the
+                      printed reckoning and under TRAIN_MEMORY_SHARE, a
+                      profiled step; two identical bf16 coded gradients bit
+                      for bit the same; the f32 coded gradient at 2 layers
+                      against the plain path and against the sum of each
+                      chunk's chunk_loss_sum gradient;
  12. gate_window   -- both gate-window kernels against their plain versions,
                       exact, over windows of 0-32 rows (every row bucket's
                       edges), ragged n, (4096, 3, 256) and 5,000 cells (past
@@ -213,7 +230,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       bytes through torch.add beside it; the SSD backward at
                       [slice-ssm-train]'s shape beside the plain backward and
                       autograd of the plain forward, and each of its three
-                      launches' device time.
+                      launches' device time; the bf16 attention backward at
+                      head dim 256 at [slice-vlm-train]'s GC shape (64, 8,
+                      320, 256), kv (64, 1, 320, 256), and at one 64-key
+                      tile (64, 8, 64, 256), beside autograd of its plain
+                      version and of SDPA.
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -319,6 +340,24 @@ MSGC_ROWS = 48 * TRAIN["seq"]
 ATTN_DH128_TRAIN = (TRAIN_SEQS, 16, 16, TRAIN["seq"], TRAIN["seq"], 128, True, 0, None)
 ATTN_DH128_MSGC = (MSGC_ROWS // TRAIN["seq"], *ATTN_DH128_TRAIN[1:])
 MOE_TRAIN = dict(layers=3, grad_layers=2, mixtral_layers=1)
+# [slice-vlm-train]: paligemma-3b at full width and depth, one model (two
+# models' training state alone is 60.2 GB); a sequence is 256 seeded patch
+# embeddings then 64 text tokens, the labels the text.  GC's job batch is 16
+# (64 sequences a coded step: at TRAIN's 32 the head's logits, their sliced
+# gradient and the text's f32 log-softmax would take ~59 GB beside 30.1 GB of
+# state, past TRAIN_MEMORY_SHARE), M-SGC's 32, the least its grid of 32 chunks
+# divides (48 sequences); the reckoning is printed beside the measured peaks.
+# The f32 gradient checks at 2 layers over GC's view of a job of 8.
+VLM_TRAIN = dict(text=64, batch={"gc": 16, "m-sgc": 32}, steps=3, grad_layers=2, grad_batch=8)
+VLM_SEQ = 256 + VLM_TRAIN["text"]
+VLM_SEQS = {"gc": (TRAIN_SCHEMES["gc"]["s"] + 1) * VLM_TRAIN["batch"]["gc"],
+            "m-sgc": 48 * VLM_TRAIN["batch"]["m-sgc"] // TRAIN["batch"]}
+# its attention in the GC and M-SGC coded steps, MQA 8/1 at head dim 256, and
+# the GC step's shape cut to one 64-key tile (the dq kernel's first pass for D
+# runs over more than one of its 16-key tiles: timed at both)
+ATTN_DH256_TRAIN = (VLM_SEQS["gc"], 8, 1, VLM_SEQ, VLM_SEQ, 256, True, 0, None)
+ATTN_DH256_MSGC = (VLM_SEQS["m-sgc"], *ATTN_DH256_TRAIN[1:])
+ATTN_DH256_TILE = (VLM_SEQS["gc"], 8, 1, 64, 64, 256, True, 0, None)
 # the share of the card's memory a trainer run's peak may fill
 TRAIN_MEMORY_SHARE = 0.9
 # the simulator: benchmarks/run.py's Table-1 grid (PARAMS, the GE chain calibrated
@@ -489,7 +528,7 @@ def main() -> None:
     attn = {label: n for label, n in sorted(hmma.items()) if label.startswith("attn_")}
     say("build", f"HMMA instructions in the SASS: {attn}")
     bf16_attn = [label for label in attn if "_bf16_kernel<" in label]
-    if len(bf16_attn) != 13 or not all(attn[label] for label in bf16_attn):
+    if len(bf16_attn) != 15 or not all(attn[label] for label in bf16_attn):
         fail(f"the bf16 attention kernels' SASS lacks tensor-core instructions: {attn}")
     # ... and so do both products of the bf16 SSD chunk scan
     ssd = {label: n for label, n in sorted(hmma.items()) if label.startswith("ssd_")}
@@ -526,15 +565,19 @@ def main() -> None:
     if len(bf16_ssd_bwd) != 10 or not all(bf16_ssd_bwd.values()):
         fail(f"the bf16 SSD backward kernels' SASS lacks tensor-core instructions: "
              f"{bf16_ssd_bwd}")
+    dh256 = ["attn_fwd_bf16_kernel<256>", "attn_bwd_dq_bf16_kernel<256>",
+             "attn_bwd_dkdv_bf16_kernel<256>", "attn_bwd_dq_kernel<float, 256>",
+             "attn_bwd_dkdv_kernel<float, 256>"]
     for label in (*[f"{k}<{dh}>" for dh in (64, 80) for k in (
                       "attn_fwd_bf16_kernel", "attn_bwd_dq_bf16_kernel",
                       "attn_bwd_dkdv_bf16_kernel")],
-                  "attn_fwd_bf16_kernel<256>",
+                  *dh256,
                   *[label for label in bf16_ssd if ", 64, " in label]):
         if "0 bytes spill stores, 0 bytes spill loads" not in ptxas.get(label, ""):
             fail(f"{label} spills at its model's head dim: {ptxas.get(label)}")
-    for label in ("attn_fwd_bf16_kernel<256>", "attn_fwd_kernel<float, 256>"):
-        say("build", f"head dim 256: {label}: {ptxas.get(label)}; HMMA {hmma.get(label)}")
+    for label in (*dh256, "attn_fwd_kernel<float, 256>", "attn_bwd_dq_bf16_kernel<128>",
+                  "attn_bwd_dkdv_bf16_kernel<128>"):
+        say("build", f"{label}: {ptxas.get(label)}; HMMA {hmma.get(label)}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -556,7 +599,7 @@ def main() -> None:
     # at qwen2-moe-a2.7b's GC and M-SGC coded steps, and a few others
     for rows, d in [(BATCH * PROMPT_LEN, 896), (BATCH, 896), (130, 640), (1, 8192),
                     (BATCH * PROMPT_LEN, 2048), (BATCH, 2048), (TRAIN_ROWS, 2048),
-                    (MSGC_ROWS, 2048),
+                    (MSGC_ROWS, 2048), *[(n * VLM_SEQ, 2048) for n in VLM_SEQS.values()],
                     (MIXTRAL["batch"] * MIXTRAL["prompt"], 6144), (MIXTRAL["batch"], 6144),
                     (BATCH * PROMPT_LEN, 1280)]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -598,6 +641,7 @@ def main() -> None:
     cases += [c + (dtype, True) for c in (ATTN_DH128_SERVED, ATTN_MIXTRAL_SERVED,
                                           ATTN_DH128_TRAIN, ATTN_DH128_MSGC,
                                           ATTN_DH256_SERVED, *ATTN_DH256_CASES,
+                                          ATTN_DH256_TRAIN, ATTN_DH256_MSGC,
                                           ATTN_AUDIO_SERVED)
               for dtype in (torch.float32, torch.bfloat16)]
     for b, hq, hkv, sq, sk, dh, causal, window, valid_k, dtype, strided in cases:
@@ -644,7 +688,8 @@ def main() -> None:
         (1, 8, 1, 200, 200, dh, False, 0, None, torch.float32),
     ] + [c + (torch.bfloat16,) for c in ATTN_BF16_EDGES] + \
         [c + (dtype,) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES, ATTN_DH128_TRAIN,
-                                ATTN_DH128_MSGC)
+                                ATTN_DH128_MSGC, ATTN_DH256_TRAIN, ATTN_DH256_MSGC,
+                                ATTN_DH256_TILE, *ATTN_DH256_CASES)
          for dtype in (torch.float32, torch.bfloat16)]
     for b, h, g_kv, sq, sk, dh_, causal, window, valid_k, dtype in bwd_cases:
         q, do = (heads_view(b, h, sq, dh_, dtype) for _ in range(2))
@@ -663,6 +708,22 @@ def main() -> None:
             errs["flash_attention_bwd dh80"] = err
         if (b, h, sq, dh_, dtype) == (*ATTN_DH128_TRAIN[:2], TRAIN["seq"], 128, torch.bfloat16):
             errs["flash_attention_bwd dh128"] = err
+        if (b, sq, dh_, dtype) == (ATTN_DH256_TRAIN[0], VLM_SEQ, 256, torch.bfloat16):
+            errs["flash_attention_bwd dh256"] = err
+    # head dim 256 at the vlm's GC training shape: a second call bit for bit the
+    # same (no atomics), in f32 and bf16
+    b, h, g_kv, sq = ATTN_DH256_TRAIN[:4]
+    for dtype in (torch.float32, torch.bfloat16):
+        q, do = (heads_view(b, h, sq, 256, dtype) for _ in range(2))
+        k, v = (heads_view(b, g_kv, sq, 256, dtype) for _ in range(2))
+        out, lse = fa_kernel(q, k, v, return_lse=True)
+        first, second = (fa_bwd(q, k, v, out, lse, do) for _ in range(2))
+        if not all(torch.equal(a, bb) for a, bb in zip(first, second)):
+            fail(f"attention-bwd: head dim 256 {dtype}: dq, dk or dv changed between calls")
+        say("attention-bwd", f"head dim 256 q {tuple(q.shape)} kv {tuple(k.shape)} "
+                             f"{_dtype_name(dtype)}: dq, dk, dv bit-identical on a second call")
+        del q, do, k, v, out, lse, first, second
+    torch.cuda.empty_cache()
     # q = k = v in bf16: a near one-hot softmax, where dP - D cancels on the
     # diagonal; against autograd of the f32 plain version on the same values
     for b, h, g_kv in ((2, 4, 4), (TRAIN_SEQS, hq, hkv)):
@@ -773,6 +834,11 @@ def main() -> None:
     # mixtral-8x22b's full width, the f32 gradient checks
     moe_train_launches = _slice_moe_train(dev)
 
+    # 11e. slice-vlm-train: full-width, full-depth paligemma-3b through
+    # make_coded_train_step (GC and M-SGC), attention at head dim 256 forward
+    # and backward; bit-identical bf16 gradients; the f32 checks at 2 layers
+    vlm_train_launches = _slice_vlm_train(dev)
+
     # 12-15. the simulator's device path: the gate-window kernels, the
     # Table-1 grid, App.-J selection and the adaptive trainer
     errs.update(_gate_window_check(dev))
@@ -825,6 +891,12 @@ def main() -> None:
     row["launches_of"] = f"[slice-moe-train] ({MOE_ARCH} coded training, gc and m-sgc)"
     row["max_abs_err"] = errs["flash_attention_bwd dh128"]
     rows.append(row)
+    row = _attention_bwd_timing(ATTN_DH256_TRAIN, heads_view, ptxas)
+    row["launches"] = vlm_train_launches["flash_attention_bwd"]
+    row["launches_of"] = f"[slice-vlm-train] ({VLM_ARCH} coded training, gc and m-sgc)"
+    row["max_abs_err"] = errs["flash_attention_bwd dh256"]
+    rows.append(row)
+    _attention_bwd_timing(ATTN_DH256_TILE, heads_view, ptxas)  # printed: one 64-key tile
     rows += _training_timings(dev, cfg, randn, ptxas)
     rows += _gate_window_timings(dev)
     rows += _ssd_timing(dev)
@@ -853,8 +925,8 @@ def main() -> None:
 
 def _rmsnorm_bwd_check(dev, cfg, randn, compare) -> float:
     """The RMSNorm backward kernel against autograd of the plain version, in f32
-    and bf16 with gamma in f32 and bf16: the coded steps' shapes (qwen2-0.5b's
-    and qwen2-moe-a2.7b's), every bucket
+    and bf16 with gamma in f32 and bf16: the coded steps' shapes (qwen2-0.5b's,
+    qwen2-moe-a2.7b's and paligemma-3b's), every bucket
     of warps a row (d 896 to 8192), the chunked path (f32 at 8192, a bf16 row of
     200 bytes); dgamma and dx bit-identical over 10 calls; the barrier counters
     at 0 after; one device kernel a call.  Returns the error at the GC step's
@@ -866,8 +938,8 @@ def _rmsnorm_bwd_check(dev, cfg, randn, compare) -> float:
 
     worst = None
     for rows, d in [(TRAIN_ROWS, cfg.d_model), (MSGC_ROWS, cfg.d_model), (TRAIN_ROWS, 2048),
-                    (MSGC_ROWS, 2048), (130, 640), (3, 100), (2048, 2048), (1024, 4096),
-                    (512, 8192)]:
+                    (MSGC_ROWS, 2048), *[(n * VLM_SEQ, 2048) for n in VLM_SEQS.values()],
+                    (130, 640), (3, 100), (2048, 2048), (1024, 4096), (512, 8192)]:
         for dtype in (torch.float32, torch.bfloat16):
             for gdtype in (torch.float32, torch.bfloat16):
                 x, dy = randn(rows, d, dtype=dtype), randn(rows, d, dtype=dtype)
@@ -1299,7 +1371,7 @@ def _slice_moe_train(dev) -> dict:
                            f"{L + 1}; max_memory_allocated {peaks} B, the GC step's {rest} B "
                            f"above its state; {TRAIN_MEMORY_SHARE:g} of the card is "
                            f"{TRAIN_MEMORY_SHARE * total:.0f} B of {total} B")
-    _moe_determinism(dev, cut)
+    _determinism("slice-moe-train", dev, cut, *_coded_job(dev, cut.vocab_size)[1:3])
     mixtral = get_config(MIXTRAL["arch"])
     say("slice-moe-train", f"{mixtral.name}: depth cut from {mixtral.num_layers} to "
                            f"{MOE_TRAIN['mixtral_layers']} layer ({mixtral.param_count()} "
@@ -1402,10 +1474,10 @@ def _coded_job(dev, vocab: int):
     return batch, coded_slot_batch(batch, slots, n), w, slots
 
 
-def _moe_determinism(dev, cfg) -> None:
-    """Two identical bf16 coded gradients at GC's coded shape (value and
-    gradient of ``coded_loss`` from the same parameters and inputs), through
-    the kernels: every leaf bit for bit the same."""
+def _determinism(phase, dev, cfg, coded, w) -> None:
+    """Two identical bf16 coded gradients (value and gradient of
+    ``coded_loss`` over the coded view ``coded`` with weights ``w``, from the
+    same parameters), through the kernels: every leaf bit for bit the same."""
     import torch
 
     from repro_torch.models import init_params
@@ -1413,17 +1485,16 @@ def _moe_determinism(dev, cfg) -> None:
     from repro_torch.tree import tree_leaves
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(2))
-    _, coded, w, _ = _coded_job(dev, cfg.vocab_size)
     runs = [value_and_grad(lambda p: coded_loss(p, cfg, coded, w, TRAIN["n"]), params)
             for _ in range(2)]
     leaves = list(zip(tree_leaves(runs[0][1]), tree_leaves(runs[1][1])))
     differ = sum(not torch.equal(a, b) for a, b in leaves)
-    say("slice-moe-train", f"{cfg.name} ({cfg.num_layers} layers) bf16 coded gradient twice "
-                           f"from the same state, {TRAIN_SEQS} x {TRAIN['seq']} tokens: "
-                           f"{len(leaves) - differ} of {len(leaves)} leaves bit-identical, "
-                           f"losses {float(runs[0][0])!r} / {float(runs[1][0])!r}")
+    n, slots, cb, seq = coded["labels"].shape
+    say(phase, f"{cfg.name} ({cfg.num_layers} layers) bf16 coded gradient twice from the same "
+               f"state, {n * slots * cb} x {seq} labels: {len(leaves) - differ} of {len(leaves)} "
+               f"leaves bit-identical, losses {float(runs[0][0])!r} / {float(runs[1][0])!r}")
     if differ or float(runs[0][0]) != float(runs[1][0]):
-        fail(f"slice-moe-train: {differ} gradient leaves differ between two identical steps")
+        fail(f"{phase}: {differ} gradient leaves differ between two identical steps")
     del runs, leaves, params
     torch.cuda.empty_cache()
 
@@ -1485,6 +1556,208 @@ def _moe_gradient_check(dev, cfg32) -> None:
     for a in tree_leaves(total):
         a.div_(n * cb)
     _check_coded_gradient("slice-moe-train", f"{what} sum of the {n} chunks' chunk_loss_sum "
+                                             f"gradients, each chunk alone",
+                          got, (total_loss / (n * cb), total))
+    del got, total, params
+    torch.cuda.empty_cache()
+
+
+def _vlm_batch(dev, cfg, job: int, batch: int) -> dict:
+    """One vlm job's batch: ``batch`` sequences of ``cfg.num_prefix_tokens``
+    seeded f32 patch embeddings (the stubbed vision tower's output, cast by
+    the model) and ``VLM_TRAIN["text"]`` text tokens from ``token_batch``,
+    whose labels are the text."""
+    import torch
+
+    from repro_torch.data import token_batch
+
+    gen = torch.Generator(device=dev).manual_seed(1_000 + job)
+    text = token_batch(0, job, batch, VLM_TRAIN["text"], cfg.vocab_size, device=dev)
+    prefix = torch.randn((batch, cfg.num_prefix_tokens, cfg.d_model), generator=gen, device=dev)
+    return {"prefix_embeds": prefix, **text}
+
+
+def _vlm_jobs(dev, cfg, name):
+    """(step, [(coded batch, weights), ...]) for ``VLM_TRAIN["steps"]`` jobs
+    of ``name``: GC (s 3) on ``gc_chunked_batch`` with ``gc_round_weights``
+    of 5 random survivors of 8, or M-SGC (B 1, W 2, lambda 2) on
+    ``coded_slot_batch`` with its decode weights, worker t % n straggling in
+    round t (within its tolerance)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_gradient_code, make_scheme
+    from repro_torch.data import coded_slot_batch, gc_chunked_batch
+    from repro_torch.train import gc_round_weights, make_coded_train_step
+
+    n, steps, b = TRAIN["n"], VLM_TRAIN["steps"], VLM_TRAIN["batch"][name]
+    if name == "gc":
+        s = TRAIN_SCHEMES["gc"]["s"]
+        code, rng = make_gradient_code(n, s, prefer_rep=False), np.random.default_rng(0)
+        jobs = [(gc_chunked_batch(_vlm_batch(dev, cfg, job, b), n, s), gc_round_weights(
+            code, sorted(rng.choice(n, n - s, replace=False).tolist())).to(dev))
+            for job in range(1, steps + 1)]
+        return make_coded_train_step(cfg, n, s), jobs
+    sch = make_scheme(name, n, steps, **TRAIN_SCHEMES[name])
+    num_chunks, _ = sch.chunk_grid()
+    jobs = []
+    for t in range(1, steps + sch.T + 1):
+        stragglers = np.zeros(n, dtype=bool)
+        stragglers[t % n] = True
+        sch.step(t, stragglers)
+        for jd in sch.collect_decodes(t):
+            jobs.append((coded_slot_batch(_vlm_batch(dev, cfg, jd.job, b),
+                                          sch.chunk_slots(jd.job), num_chunks),
+                         torch.from_numpy(sch.decode_weights(jd)).to(dev)))
+    return make_coded_train_step(cfg, n, 0, num_chunks=num_chunks), jobs
+
+
+def _slice_vlm_train(dev) -> dict:
+    """[slice-vlm-train]: the vlm family's coded training on the card.  One
+    full-width, full-depth paligemma-3b in bf16 from seed 0 through
+    ``make_coded_train_step`` (``coded_loss`` -> ``token_nll``: the tied head
+    over every patch and text position, then the text's slice -> per layer
+    under ``_remat`` RMSNorm, attention at head dim 256, MQA 8/1, forward and
+    backward kernels, RMSNorm, SwiGLU -> AdamW), GC and M-SGC for
+    ``VLM_TRAIN["steps"]`` steps each: exact launches a step, finite losses,
+    step ms, the peak against the reckoning printed and ``TRAIN_MEMORY_SHARE``,
+    a profiled step; two identical bf16 coded gradients bit for bit the same;
+    the f32 coded gradient at 2 layers against the plain path and against the
+    sum of each chunk's ``chunk_loss_sum`` gradient.  Returns the trainer
+    steps' attention backward launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import init_train_state
+
+    phase = "slice-vlm-train"
+    cfg = get_config(VLM_ARCH)
+    counters = _train_counters()
+    per_step = _per_step(cfg)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    room = TRAIN_MEMORY_SHARE * total
+    seq = cfg.num_prefix_tokens + VLM_TRAIN["text"]
+    state = 12 * cfg.param_count()  # bf16 weight and gradient, f32 AdamW moments
+
+    def head_bytes(seqs):
+        """The head's logits over every position (bf16) and the zero-filled
+        gradient of their text slice, and the f32 log-softmax of the text
+        positions and its gradient."""
+        text = VLM_TRAIN["text"] - 1
+        return 2 * 2 * seqs * seq * cfg.vocab_size + 2 * 4 * seqs * text * cfg.vocab_size
+
+    seqs = VLM_SEQS
+    say(phase, f"{cfg.name}: {cfg.num_layers} layers (full depth), {cfg.param_count()} params in "
+               f"{cfg.dtype}; sequences of {cfg.num_prefix_tokens} patch embeddings + "
+               f"{VLM_TRAIN['text']} text tokens; reckoning: training state {state} B (12 B a "
+               f"parameter; two models {2 * state} B), the head's logits, their sliced "
+               f"gradient and the text's f32 log-softmax with its gradient {head_bytes(128)} B "
+               f"at TRAIN's batch {TRAIN['batch']} a job (128 sequences), "
+               f"{head_bytes(seqs['gc'])} B at {VLM_TRAIN['batch']['gc']} ({seqs['gc']} "
+               f"sequences, GC) and {head_bytes(seqs['m-sgc'])} B at "
+               f"{VLM_TRAIN['batch']['m-sgc']} ({seqs['m-sgc']}, M-SGC: its grid has 32 "
+               f"chunks); {TRAIN_MEMORY_SHARE:g} of the card is {room:.0f} B of {total} B")
+    params, opt = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
+    totals, last = {"flash_attention_bwd": 0}, {}
+    for name in VLM_TRAIN["batch"]:
+        step, jobs = _vlm_jobs(dev, cfg, name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        times, losses = [], []
+        for coded, w in jobs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, coded, w)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        launches = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        steps = len(times)
+        median_ms = statistics.median(times[1:]) * 1e3
+        n_seq = coded["labels"].shape[0] * coded["labels"].shape[1] * coded["labels"].shape[2]
+        say(phase, f"{name} {TRAIN_SCHEMES[name]}: {steps} coded steps of {n_seq} sequences x "
+                   f"{seq} positions (job batch {VLM_TRAIN['batch'][name]}); coded step "
+                   f"{median_ms:.3f} ms median of steps 2-{steps} (all: "
+                   f"{[round(t * 1e3, 3) for t in times]} ms); max_memory_allocated {peak} B "
+                   f"(reckoned {state + head_bytes(n_seq)} B of state and head, "
+                   f"{peak - state} B above the state); losses {[round(x, 4) for x in losses]}")
+        say(phase, f"{name}: launches per step "
+                   f"{ {k: v / steps for k, v in launches.items()} } (expected {per_step})")
+        if any(launches[k] != per_step[k] * steps for k in per_step):
+            fail(f"{phase} {name}: launches {launches} over {steps} steps, expected "
+                 f"{per_step} per step")
+        if steps != VLM_TRAIN["steps"] or n_seq != seqs[name] or not np.isfinite(losses).all():
+            fail(f"{phase} {name}: {steps} steps of {n_seq} sequences, losses {losses}")
+        if peak > room:
+            fail(f"{phase} {name}: peak memory {peak} B past {TRAIN_MEMORY_SHARE:g} of the "
+                 f"card's ({room:.0f} B)")
+        totals["flash_attention_bwd"] += launches["flash_attention_bwd"]
+        _breakdown(f"profile {phase} {name} step",
+                   _device_events(lambda: step(params, opt, coded, w)), median_ms)
+        if name == "gc":
+            last = {"coded": coded, "w": w}
+        del jobs, coded, w
+        torch.cuda.empty_cache()
+    del params, opt
+    torch.cuda.empty_cache()
+    _determinism(phase, dev, cfg, last["coded"], last["w"])
+    del last
+    _vlm_gradient_check(dev, cfg.replace(dtype="float32", num_layers=VLM_TRAIN["grad_layers"]))
+    return totals
+
+
+def _vlm_gradient_check(dev, cfg32) -> None:
+    """f32 coded gradient of ``cfg32`` (full width, cut depth) at GC's coded
+    view of a job of ``VLM_TRAIN["grad_batch"]`` with s stragglers: through
+    the kernels against the plain path, and against the sum of each chunk's
+    ``chunk_loss_sum`` gradient, each chunk in a forward of its own."""
+    import torch
+
+    from repro_torch.core import make_gradient_code
+    from repro_torch.data import gc_chunked_batch
+    from repro_torch.models import init_params
+    from repro_torch.train import gc_round_weights
+    from repro_torch.train.coded import chunk_loss_sum, coded_loss, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    counters = _train_counters()
+    per_step = _per_step(cfg32)
+    n, s, b = TRAIN["n"], TRAIN_SCHEMES["gc"]["s"], VLM_TRAIN["grad_batch"]
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(1))
+    batch = _vlm_batch(dev, cfg32, 1, b)
+    survivors = [0, 2, 3, 5, 7]
+    w = gc_round_weights(make_gradient_code(n, s, prefer_rep=False), survivors).to(dev)
+    coded = gc_chunked_batch(batch, n, s)
+    for c in counters.values():
+        c.launches = 0
+    got = value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n), params)
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(launches[k] != per_step[k] for k in per_step):
+        fail(f"slice-vlm-train: f32 coded gradient launches {launches}, expected {per_step}")
+    what = (f"f32 {cfg32.num_layers}-layer {cfg32.name} coded gradient ({n * (s + 1)} x "
+            f"{b // n} sequences, survivors {survivors}) vs")
+    _check_coded_gradient("slice-vlm-train", f"{what} plain path's", got,
+                          value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n, plain=True),
+                                         params))
+    cb = b // n
+    total_loss, total = 0.0, None
+    for chunk in range(n):
+        part = {k: v[chunk * cb:(chunk + 1) * cb] for k, v in batch.items()}
+        loss, grads = value_and_grad(lambda p: chunk_loss_sum(p, cfg32, part), params)
+        total_loss += float(loss)
+        if total is None:
+            total = grads
+        else:
+            for a, g in zip(tree_leaves(total), tree_leaves(grads)):
+                a.add_(g)
+        del grads
+    for a in tree_leaves(total):
+        a.div_(n * cb)
+    _check_coded_gradient("slice-vlm-train", f"{what} sum of the {n} chunks' chunk_loss_sum "
                                              f"gradients, each chunk alone",
                           got, (total_loss / (n * cb), total))
     del got, total, params
@@ -1602,7 +1875,8 @@ def _attention_dh80_timings(heads_view, ptxas) -> list:
 def _attention_bwd_timing(case, heads_view, ptxas, qkv_do=None) -> dict:
     """The bf16 attention backward at ``case`` (b, hq, hkv, s, s, dh, causal,
     ...; q, k, v and dO strided as the model passes them, or ``qkv_do``)
-    beside autograd of its plain version and of SDPA, and the bound: q, k,
+    beside autograd of its plain version and of SDPA, the device time of
+    each of its two launches (dq, dkdv), and the bound: q, k,
     v, dO and lse read once, dq, dk, dv written once (the bf16 kernels take
     D = rowsum(P * dP) from their own P and dP and never read the forward's
     output); S again, dP, dV, dQ and dK over the causal (q, k) pairs.  Returns
@@ -1638,6 +1912,10 @@ def _attention_bwd_timing(case, heads_view, ptxas, qkv_do=None) -> dict:
         n_bytes, 10 * dh * pairs, "bf16_tensor", iters=50)
     _say_attention(row, f"backward bf16 at head dim {dh}, kv {tuple(k.shape)}, causal {causal}",
                    ptxas, f"attn_bwd_dq_bf16_kernel<{dh}>", f"attn_bwd_dkdv_bf16_kernel<{dh}>")
+    say("timings", f"backward bf16 at head dim {dh} {tuple(q.shape)}, device ms a call by launch: "
+                   + ", ".join(f"{name} {ms:.5f}" for name, ms in _launch_ms(
+                       lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=causal),
+                       20).items()))
     del y_plain, y_lib, qr, kr, vr
     torch.cuda.empty_cache()
     return row

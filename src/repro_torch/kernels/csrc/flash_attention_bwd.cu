@@ -48,14 +48,47 @@
 //   - Masks apply per element only on tiles that cross an edge; tiles wholly
 //     outside the band are skipped.  Rows of a fully masked query have lse +inf
 //     from the forward, so their P is 0.  Shared memory: 56 KB (dq) and 56 KB
-//     (dkdv) at dh 64, 67 KB at dh 80, dynamic.  Above dh 64 (80 and 128) the
-//     resident operands' fragments are read from shared memory at each use.
+//     (dkdv) at dh 64, 67 KB at dh 80, dynamic.  Above dh 64 (80, 128 and 256)
+//     the resident operands' fragments are read from shared memory at each use.
 //     mma.sync rather than wgmma: the bound is bytes at these shapes (see
 //     flash_attention.cu).
+//   - Head dim 256 (paligemma-3b; BwdPlan).  At paligemma's training shape, q
+//     (64, 8, 320, 256) and kv (64, 1, 320, 256), causal, the function moves
+//     294.9 MB (88.0 us at 3.35 TB/s) for 67.3 GFLOP (68.0 us at 989 TFLOP/s):
+//     bytes bind, only just.  The dh-128 layout does not carry over:
+//     * dkdv: two 16 x 256 f32 accumulators a warp would be 256 registers a
+//       thread before S and dP (at dh 128 the pair is 128 and the kernel
+//       already holds 255).  Of splitting dh over warps, one accumulator in
+//       shared memory (64 KB, read and written at every q tile) and one launch
+//       each for dK and dV (S and P computed twice), the first: 8 warps a
+//       block, two to a row group of 16 keys, each owning 128 of dK's and dV's
+//       columns (2 x 64 accumulator registers) and doing its half of the
+//       contraction over dh in S^T = K Q^T and dP^T = V dO^T; the pair adds
+//       the two partial tiles through shared memory (pair_sum, a named barrier
+//       of 64 threads), so no product is computed twice and both warps hold
+//       the same S^T and dP^T (a + b == b + a).  Query tiles of 32 rows keep S
+//       and dP at 16 registers each and the ring small: K and V 66 KB, two
+//       stages of (Q, dO) 66 KB, the exchange 32 KB, 165 KB a block, so one
+//       block (8 warps) an SM.  At the training shape the grid is hkv 1 x 64
+//       sequences x 5 key tiles = 320 blocks: 2.4 waves over 132 SMs, the
+//       longest (first) key tiles first.
+//     * dq: the forward's O problem at 256 (flash_attention.cu): the 16 x 256
+//       f32 dQ accumulator is 128 registers, Q and dO are read from their
+//       shared tiles at each use, and the staged (K, V) tiles hold 16 keys,
+//       which keeps S and dP at 8 registers each and a block at 99 KB (Q, dO
+//       66 KB, two stages of (K, V) 33 KB), so two blocks (8 warps) an SM;
+//       tiles of 32 keys, the forward's, would take 132 KB and one block of 4
+//       warps once dO's tile is added.  D still comes from the f32 P and dP,
+//       so over more than one 16-key tile the first pass runs (S and dP twice).
+//     chip_smoke.py's [build] prints both kernels' ptxas registers and spills
+//     and their HMMA counts, and fails on a spill.
 // * f32 (attn_bwd_dq_kernel, attn_bwd_dkdv_kernel), the dtype of the gradient
 //   checks: f32 FMAs on the CUDA cores with the f32 forward's thread layout (a
 //   row owned by RowSplit<dh>::kThreads neighbouring threads, tiles of 32 keys
-//   or queries staged as f32).
+//   or queries staged as f32 in dynamic shared memory, 64 KB at dh 256).
+//   Blocks hold 64 query rows (dq) or keys (dkdv), 32 at dh 256, whose 8
+//   threads a row would otherwise make blocks of 512 threads capped at 128
+//   registers a thread, as in the forward.
 // * All take (batch, head, seq) strides with a contiguous last dim; the bf16
 //   kernels move 16 bytes per cp.async, so the wrapper checks 16-byte aligned
 //   pointers and strides.
@@ -67,9 +100,10 @@
 
 namespace {
 
-constexpr int kBlockQ = 64;   // dq: query rows per block
+// f32: query rows (dq) and keys (dkdv) a block owns, 32 at dh 256 (header)
+template <int DH>
+constexpr int kBlockRows = DH <= 128 ? 64 : 32;
 constexpr int kBlockK = 32;   // dq: keys per staged kv tile
-constexpr int kBlockKV = 64;  // dkdv: keys per block
 constexpr int kTileQ = 32;    // dkdv: query rows per staged q tile
 
 struct Strides {
@@ -90,15 +124,16 @@ __device__ __forceinline__ bool allowed(const BwdArgs& a, int qpos, int kpos) {
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kBlockQ * RowSplit<DH>::kThreads)
+__global__ void __launch_bounds__(kBlockRows<DH> * RowSplit<DH>::kThreads)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ o, const T* __restrict__ dout,
                    const float* __restrict__ lse, float* __restrict__ delta,
                    T* __restrict__ dq, const BwdArgs a) {
   constexpr int TPR = RowSplit<DH>::kThreads;  // threads per query row
   constexpr int kRuns = RowSplit<DH>::kRuns;   // runs of 4 elements a thread owns
-  __shared__ __align__(16) float ks[kBlockK][DH];
-  __shared__ __align__(16) float vs[kBlockK][DH];
+  extern __shared__ __align__(16) float f32_smem[];  // the K and V tiles
+  float (*ks)[DH] = reinterpret_cast<float (*)[DH]>(f32_smem);
+  float (*vs)[DH] = reinterpret_cast<float (*)[DH]>(f32_smem + kBlockK * DH);
 
   const int tid = threadIdx.x;
   const int sub = tid % TPR;
@@ -106,7 +141,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int h = blockIdx.y;
   const int bi = blockIdx.z;
   const int kh = h / (a.hq / a.hkv);
-  const int q0 = qt * kBlockQ;
+  const int q0 = qt * kBlockRows<DH>;
   const int qpos = q0 + tid / TPR;
   const bool row_ok = qpos < a.sq;
 
@@ -132,7 +167,7 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   if (row_ok && sub == 0) delta[row] = dsum;
 
   // kv tiles that can hold an unmasked key for some row of this q tile
-  const int q_last = min(q0 + kBlockQ, a.sq) - 1;
+  const int q_last = min(q0 + kBlockRows<DH>, a.sq) - 1;
   int kv_end = a.valid_k;
   if (a.causal) kv_end = min(kv_end, q_last + 1);
   int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
@@ -186,23 +221,25 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kBlockKV * RowSplit<DH>::kThreads)
+__global__ void __launch_bounds__(kBlockRows<DH> * RowSplit<DH>::kThreads)
 attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                      const BwdArgs a) {
   constexpr int TPR = RowSplit<DH>::kThreads;  // threads per key row
   constexpr int kRuns = RowSplit<DH>::kRuns;
-  __shared__ __align__(16) float qs[kTileQ][DH];
-  __shared__ __align__(16) float dos[kTileQ][DH];
-  __shared__ float ls[kTileQ], dls[kTileQ];
+  extern __shared__ __align__(16) float f32_smem[];  // the Q and dO tiles, then lse and D
+  float (*qs)[DH] = reinterpret_cast<float (*)[DH]>(f32_smem);
+  float (*dos)[DH] = reinterpret_cast<float (*)[DH]>(f32_smem + kTileQ * DH);
+  float* ls = f32_smem + 2 * kTileQ * DH;
+  float* dls = ls + kTileQ;
 
   const int tid = threadIdx.x;
   const int sub = tid % TPR;
   const int kh = blockIdx.y;
   const int bi = blockIdx.z;
   const int group = a.hq / a.hkv;
-  const int k0 = blockIdx.x * kBlockKV;
+  const int k0 = blockIdx.x * kBlockRows<DH>;
   const int kpos = k0 + tid / TPR;
   const bool key_ok = kpos < a.sk;
 
@@ -221,7 +258,7 @@ attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     }
 
   // query rows that can see some key of this tile
-  const int k_last = min(k0 + kBlockKV, a.valid_k) - 1;
+  const int k_last = min(k0 + kBlockRows<DH>, a.valid_k) - 1;
   int q_begin = a.causal ? k0 : 0;
   int q_end = k_last < k0 ? 0 : a.sq;  // the whole tile is past valid_k
   if (a.window > 0) q_end = min(q_end, k_last + a.window);
@@ -305,16 +342,24 @@ cudaError_t launch_dh(const void* const* ptrs, float* delta, int b, const BwdArg
   T* dq = static_cast<T*>(const_cast<void*>(ptrs[6]));
   T* dk = static_cast<T*>(const_cast<void*>(ptrs[7]));
   T* dv = static_cast<T*>(const_cast<void*>(ptrs[8]));
-  constexpr int TPR = RowSplit<DH>::kThreads;
+  constexpr int threads = kBlockRows<DH> * RowSplit<DH>::kThreads;
+  constexpr int smem_q = 2 * kBlockK * DH * (int)sizeof(float);
+  constexpr int smem_kv = (2 * kTileQ * DH + 2 * kTileQ) * (int)sizeof(float);
   if (a.sq > 0) {  // the dkdv launch reads the D that this one writes
-    const dim3 grid_q((a.sq + kBlockQ - 1) / kBlockQ, a.hq, b);
-    attn_bwd_dq_kernel<T, DH><<<grid_q, kBlockQ * TPR, 0, stream>>>(q, k, v, o, dout, lse,
-                                                                    delta, dq, a);
+    if (cudaError_t err = cudaFuncSetAttribute(
+            attn_bwd_dq_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_q))
+      return err;
+    const dim3 grid_q((a.sq + kBlockRows<DH> - 1) / kBlockRows<DH>, a.hq, b);
+    attn_bwd_dq_kernel<T, DH><<<grid_q, threads, smem_q, stream>>>(q, k, v, o, dout, lse,
+                                                                   delta, dq, a);
     if (cudaError_t err = cudaGetLastError()) return err;
   }
   if (a.sk == 0) return cudaSuccess;
-  const dim3 grid_kv((a.sk + kBlockKV - 1) / kBlockKV, a.hkv, b);
-  attn_bwd_dkdv_kernel<T, DH><<<grid_kv, kBlockKV * TPR, 0, stream>>>(q, k, v, dout, lse, delta,
+  if (cudaError_t err = cudaFuncSetAttribute(
+          attn_bwd_dkdv_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_kv))
+    return err;
+  const dim3 grid_kv((a.sk + kBlockRows<DH> - 1) / kBlockRows<DH>, a.hkv, b);
+  attn_bwd_dkdv_kernel<T, DH><<<grid_kv, threads, smem_kv, stream>>>(q, k, v, dout, lse, delta,
                                                                      dk, dv, a);
   return cudaGetLastError();
 }
@@ -327,6 +372,7 @@ cudaError_t launch(const void* const* ptrs, float* delta, int b, int dh, const B
     case 64: return launch_dh<T, 64>(ptrs, delta, b, a, stream);
     case 80: return launch_dh<T, 80>(ptrs, delta, b, a, stream);
     case 128: return launch_dh<T, 128>(ptrs, delta, b, a, stream);
+    case 256: return launch_dh<T, 256>(ptrs, delta, b, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -336,16 +382,51 @@ cudaError_t launch(const void* const* ptrs, float* delta, int b, int dh, const B
 using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // dq: query rows per block; dkdv: per staged q tile
-constexpr int kKeys = 16 * kWarps;  // dkdv: keys per block; dq: per staged kv tile
+constexpr int kThreads = 32 * kWarps;  // dq
+constexpr int kRows = 16 * kWarps;     // dq: query rows per block
+constexpr int kKeys = 16 * kWarps;     // dkdv: keys per block
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The bf16 kernels' tiles by head dim (the header says why at 256).
 template <int DH>
-constexpr int bf16_smem_bytes() {
-  // dq: Q, dO and two stages of (K, V);
-  // dkdv: K, V and two stages of (Q, dO), then two stages of (lse, D)
-  return 6 * 64 * mma::Tile<DH>::kStride * (int)sizeof(bf16) + 4 * 64 * (int)sizeof(float);
+struct BwdPlan {
+  static constexpr int S = mma::Tile<DH>::kStride;
+  static constexpr bool kResident = DH <= 64;  // resident operands' A fragments in registers
+  // dq: keys per staged (K, V) tile
+  static constexpr int kDqKeys = DH <= 128 ? 64 : 16;
+  // dkdv: warps that share a row group of 16 keys, each owning DH / kHalves
+  // columns of dK and dV and that share of the contraction over dh
+  static constexpr int kHalves = DH <= 128 ? 1 : 2;
+  static constexpr int kDkdvThreads = kThreads * kHalves;
+  static constexpr int kDkdvRows = DH <= 128 ? 64 : 32;  // query rows per staged (Q, dO) tile
+  // a warp's partial S^T or dP^T tile, lane-major: its C fragments
+  static constexpr int kXFloats = kDkdvRows / 8 * 4 * 32;
+  // dq: Q, dO and two stages of (K, V)
+  static constexpr int kDqSmem = (2 * kRows + 4 * kDqKeys) * S * (int)sizeof(bf16);
+  // dkdv: K, V, two stages of (Q, dO) and of (lse, D), and with halves two
+  // exchange buffers a warp
+  static constexpr int kDkdvSmem =
+      (2 * kKeys + 4 * kDkdvRows) * S * (int)sizeof(bf16) + 4 * kDkdvRows * (int)sizeof(float) +
+      (kHalves > 1 ? 2 * kWarps * kHalves * kXFloats * (int)sizeof(float) : 0);
+};
+
+// x (a warp's partial tile: its half of a contraction over dh) plus its
+// partner's, through shared memory: both warps of the pair end with the same
+// sum (a + b == b + a).  `id` is the pair's named barrier (0 is
+// __syncthreads').  The block-wide barrier that ends every q tile keeps a
+// buffer from being rewritten before the partner has read it.
+template <int NT>
+__device__ __forceinline__ void pair_sum(float (&x)[NT][4], float* mine, const float* theirs,
+                                         int id, int lane) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mine[(n * 4 + e) * 32 + lane] = x[n][e];
+  mma::bar_sync(id, 64);
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] += theirs[(n * 4 + e) * 32 + lane];
 }
 
 template <int DH>
@@ -354,14 +435,15 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, float* __restrict__ delta,
                         bf16* __restrict__ dq, const BwdArgs a) {
-  constexpr int S = mma::Tile<DH>::kStride;
+  using Plan = BwdPlan<DH>;
+  constexpr int S = Plan::S;
   constexpr int KC = DH / 16;
-  constexpr int NT = kKeys / 8;
-  constexpr bool kResident = DH <= 64;  // Q and dO fragments in registers
+  constexpr int KT = Plan::kDqKeys;
+  constexpr int NT = KT / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* dos = qs + kRows * S;
-  bf16* ring = dos + kRows * S;  // stage i: K at ring + i * 2 * kKeys * S, then V
+  bf16* ring = dos + kRows * S;  // stage i: K at ring + i * 2 * KT * S, then V
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -370,7 +452,7 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // the longest causal tiles first
   const mma::Band band{a.sq, a.valid_k, a.causal, a.window};
   int kv_begin, kv_end;
-  const int n_tiles = band.key_tiles(q0, kRows, kKeys, &kv_begin, &kv_end);
+  const int n_tiles = band.key_tiles(q0, kRows, KT, &kv_begin, &kv_end);
   // D = rowsum(P * dP) needs every key tile before the first dS: one tile
   // serves both from the same registers, more take a first pass for D
   const int steps = n_tiles <= 1 ? n_tiles : 2 * n_tiles;
@@ -379,10 +461,10 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + bi * a.k.b + kh * a.k.h;
   const bf16* vb = v + bi * a.v.b + kh * a.v.h;
   auto load_kv = [&](int j) {  // step j reads key tile j % n_tiles into stage j & 1
-    bf16* ks = ring + (j & 1) * 2 * kKeys * S;
-    const int k0 = kv_begin + (j % n_tiles) * kKeys;
-    mma::load_tile<kKeys, DH, kThreads>(ks, kb, a.k.s, k0, kv_end, tid);
-    mma::load_tile<kKeys, DH, kThreads>(ks + kKeys * S, vb, a.v.s, k0, kv_end, tid);
+    bf16* ks = ring + (j & 1) * 2 * KT * S;
+    const int k0 = kv_begin + (j % n_tiles) * KT;
+    mma::load_tile<KT, DH, kThreads>(ks, kb, a.k.s, k0, kv_end, tid);
+    mma::load_tile<KT, DH, kThreads>(ks + KT * S, vb, a.v.s, k0, kv_end, tid);
   };
   mma::load_tile<kRows, DH, kThreads>(qs, q + bi * a.q.b + h * a.q.h, a.q.s, q0, a.sq, tid);
   mma::load_tile<kRows, DH, kThreads>(dos, db, a.dout.s, q0, a.sq, tid);
@@ -391,7 +473,7 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   mma::cp_async_commit();
   mma::cp_async_wait<1>();  // Q and dO have landed
   __syncthreads();
-  mma::AFrags<DH, kResident> qf, dof;
+  mma::AFrags<DH, Plan::kResident> qf, dof;
   qf.init(qs + warp * 16 * S, lane);
   dof.init(dos + warp * 16 * S, lane);
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
@@ -412,16 +494,16 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mma::cp_async_commit();
     mma::cp_async_wait<1>();  // step j's tile has landed
     __syncthreads();
-    const bf16* ks = ring + (j & 1) * 2 * kKeys * S;
-    const int k0 = kv_begin + (j % n_tiles) * kKeys;
+    const bf16* ks = ring + (j & 1) * 2 * KT * S;
+    const int k0 = kv_begin + (j % n_tiles) * KT;
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma::mma_abt<NT, KC, DH>(s, qf, ks, lane);           // S = Q K^T
-    mma::mma_abt<NT, KC, DH>(dp, dof, ks + kKeys * S, lane);  // dP = dO V^T
-    const bool edge = band.crosses(q0, kRows, k0, kKeys);
+    mma::mma_abt<NT, KC, DH>(s, qf, ks, lane);            // S = Q K^T
+    mma::mma_abt<NT, KC, DH>(dp, dof, ks + KT * S, lane);  // dP = dO V^T
+    const bool edge = band.crosses(q0, kRows, k0, KT);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -462,60 +544,69 @@ attn_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(BwdPlan<DH>::kDkdvThreads)
 attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, const BwdArgs a) {
-  constexpr int S = mma::Tile<DH>::kStride;
-  constexpr int KC = DH / 16;
-  constexpr int NT = kRows / 8;
-  constexpr bool kResident = DH <= 64;  // K and V fragments in registers
+  using Plan = BwdPlan<DH>;
+  constexpr int S = Plan::S;
+  constexpr int TH = Plan::kDkdvThreads;
+  constexpr int QT = Plan::kDkdvRows;
+  constexpr int NT = QT / 8;
+  constexpr int CW = DH / Plan::kHalves;  // the warp's columns and share of dh
+  constexpr int KCW = CW / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + kKeys * S;
-  bf16* ring = vs + kKeys * S;  // stage i: Q at ring + i * 2 * kRows * S, then dO
-  float* fring = reinterpret_cast<float*>(ring + 4 * kRows * S);  // stage i: lse, then D
+  bf16* ring = vs + kKeys * S;  // stage i: Q at ring + i * 2 * QT * S, then dO
+  float* fring = reinterpret_cast<float*>(ring + 4 * QT * S);  // stage i: lse, then D
+  float* xbuf = fring + 4 * QT;  // with halves: a warp's partial S^T, then its partial dP^T
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  constexpr bool kPairs = Plan::kHalves > 1;
+  // keys wr * 16 .. + 16 of the block's 64, and the first of the warp's
+  // columns (constants without halves, so the addresses fold as before)
+  const int wr = kPairs ? warp % kWarps : warp;
+  const int c0 = kPairs ? warp / kWarps * CW : 0;
   const int kh = blockIdx.x, bi = blockIdx.y;
   const int group = a.hq / a.hkv;
   const int k0 = blockIdx.z * kKeys;  // the first key tiles, which most queries see, first
   const mma::Band band{a.sq, a.valid_k, a.causal, a.window};
   int q_begin = 0;
-  const int n_q = band.query_tiles(k0, kKeys, kRows, &q_begin);
+  const int n_q = band.query_tiles(k0, kKeys, QT, &q_begin);
   const int total = group * n_q;  // (q-head, q tile) steps
 
   auto load_q = [&](int it) {
-    const int h = kh * group + it / n_q, qs0 = q_begin + (it % n_q) * kRows;
-    bf16* qst = ring + (it & 1) * 2 * kRows * S;
-    mma::load_tile<kRows, DH, kThreads>(qst, q + bi * a.q.b + h * a.q.h, a.q.s, qs0, a.sq, tid);
-    mma::load_tile<kRows, DH, kThreads>(qst + kRows * S, dout + bi * a.dout.b + h * a.dout.h,
-                                        a.dout.s, qs0, a.sq, tid);
-    float* fst = fring + (it & 1) * 2 * kRows;
+    const int h = kh * group + it / n_q, qs0 = q_begin + (it % n_q) * QT;
+    bf16* qst = ring + (it & 1) * 2 * QT * S;
+    mma::load_tile<QT, DH, TH>(qst, q + bi * a.q.b + h * a.q.h, a.q.s, qs0, a.sq, tid);
+    mma::load_tile<QT, DH, TH>(qst + QT * S, dout + bi * a.dout.b + h * a.dout.h, a.dout.s, qs0,
+                               a.sq, tid);
+    float* fst = fring + (it & 1) * 2 * QT;
     const long long rows = ((long long)bi * a.hq + h) * a.sq + qs0;
-    for (int r = tid; r < kRows; r += kThreads) {
+    for (int r = tid; r < QT; r += TH) {
       const bool ok = qs0 + r < a.sq;
       mma::cp_async_4(fst + r, lse + (ok ? rows + r : 0), ok);
-      mma::cp_async_4(fst + kRows + r, delta + (ok ? rows + r : 0), ok);
+      mma::cp_async_4(fst + QT + r, delta + (ok ? rows + r : 0), ok);
     }
   };
-  mma::load_tile<kKeys, DH, kThreads>(ks, k + bi * a.k.b + kh * a.k.h, a.k.s, k0, a.sk, tid);
-  mma::load_tile<kKeys, DH, kThreads>(vs, v + bi * a.v.b + kh * a.v.h, a.v.s, k0, a.sk, tid);
+  mma::load_tile<kKeys, DH, TH>(ks, k + bi * a.k.b + kh * a.k.h, a.k.s, k0, a.sk, tid);
+  mma::load_tile<kKeys, DH, TH>(vs, v + bi * a.v.b + kh * a.v.h, a.v.s, k0, a.sk, tid);
   mma::cp_async_commit();
   if (total > 0) load_q(0);
   mma::cp_async_commit();
   mma::cp_async_wait<1>();  // K and V have landed
   __syncthreads();
-  mma::AFrags<DH, kResident> kf, vf;
-  kf.init(ks + warp * 16 * S, lane);
-  vf.init(vs + warp * 16 * S, lane);
-  const int key0 = k0 + warp * 16 + g, key1 = key0 + 8;
+  mma::AFrags<DH, Plan::kResident> kf, vf;  // the warp's columns of its 16 keys
+  kf.init(ks + wr * 16 * S + c0, lane);
+  vf.init(vs + wr * 16 * S + c0, lane);
+  const int key0 = k0 + wr * 16 + g, key1 = key0 + 8;
   const float sl2 = a.scale * kLog2e;
-  float dka[DH / 8][4], dva[DH / 8][4];
+  float dka[CW / 8][4], dva[CW / 8][4];
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
+  for (int n = 0; n < CW / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 
@@ -524,17 +615,21 @@ attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     mma::cp_async_commit();
     mma::cp_async_wait<1>();  // step it has landed
     __syncthreads();
-    const bf16* qst = ring + (it & 1) * 2 * kRows * S;
-    const bf16* dost = qst + kRows * S;
-    const float* fst = fring + (it & 1) * 2 * kRows;
-    const int qs0 = q_begin + (it % n_q) * kRows;
+    const bf16* qst = ring + (it & 1) * 2 * QT * S;
+    const bf16* dost = qst + QT * S;
+    const float* fst = fring + (it & 1) * 2 * QT;
+    const int qs0 = q_begin + (it % n_q) * QT;
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    mma::mma_abt<NT, KC, DH>(s, kf, qst, lane);  // S^T = K Q^T: rows keys, columns queries
-    const bool edge = band.crosses(qs0, kRows, k0, kKeys);
+    // S^T = K Q^T: rows keys, columns queries, over the warp's share of dh
+    mma::mma_abt<NT, KCW, DH>(s, kf, qst + c0, lane);
+    if constexpr (kPairs)  // the warp's partial tile, then its partner's (warp ^ 4)
+      pair_sum<NT>(s, xbuf + warp * 2 * Plan::kXFloats,
+                   xbuf + (warp ^ kWarps) * 2 * Plan::kXFloats, 1 + wr, lane);
+    const bool edge = band.crosses(qs0, QT, k0, kKeys);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -544,30 +639,34 @@ attn_bwd_dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         if (edge && !band.visible(qs0 + c, e < 2 ? key0 : key1)) p = 0.f;
         s[n][e] = p;
       }
-    mma::mma_pv<NT / 2, DH>(dva, s, dost, lane);  // dV += P^T dO
+    mma::mma_pv<NT / 2, CW, S>(dva, s, dost + c0, lane);  // dV += P^T dO, the warp's columns
     float dp[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
-    mma::mma_abt<NT, KC, DH>(dp, vf, dost, lane);  // dP^T = V dO^T
+    mma::mma_abt<NT, KCW, DH>(dp, vf, dost + c0, lane);  // dP^T = V dO^T
+    if constexpr (kPairs)
+      pair_sum<NT>(dp, xbuf + (warp * 2 + 1) * Plan::kXFloats,
+                   xbuf + ((warp ^ kWarps) * 2 + 1) * Plan::kXFloats, 1 + wr, lane);
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[n][e] *= dp[n][e] - fst[kRows + n * 8 + 2 * t + (e & 1)];  // dS^T
-    mma::mma_pv<NT / 2, DH>(dka, s, qst, lane);  // dK += dS^T Q
+        s[n][e] *= dp[n][e] - fst[QT + n * 8 + 2 * t + (e & 1)];  // dS^T
+    mma::mma_pv<NT / 2, CW, S>(dka, s, qst + c0, lane);  // dK += dS^T Q
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  mma::store_rows<DH>(dka, a.scale, a.scale, ks + warp * 16 * S, dk + bi * a.dk.b + kh * a.dk.h,
-                      a.dk.s, k0 + warp * 16, a.sk, lane);
-  mma::store_rows<DH>(dva, 1.f, 1.f, vs + warp * 16 * S, dv + bi * a.dv.b + kh * a.dv.h, a.dv.s,
-                      k0 + warp * 16, a.sk, lane);
+  mma::store_rows<CW, S>(dka, a.scale, a.scale, ks + wr * 16 * S + c0,
+                         dk + bi * a.dk.b + kh * a.dk.h + c0, a.dk.s, k0 + wr * 16, a.sk, lane);
+  mma::store_rows<CW, S>(dva, 1.f, 1.f, vs + wr * 16 * S + c0,
+                         dv + bi * a.dv.b + kh * a.dv.h + c0, a.dv.s, k0 + wr * 16, a.sk, lane);
 }
 
 template <int DH>
 cudaError_t launch_bf16_dh(const void* const* ptrs, float* delta, int b, const BwdArgs& a,
                            cudaStream_t stream) {
+  using Plan = BwdPlan<DH>;
   const bf16* q = static_cast<const bf16*>(ptrs[0]);
   const bf16* k = static_cast<const bf16*>(ptrs[1]);
   const bf16* v = static_cast<const bf16*>(ptrs[2]);
@@ -576,23 +675,24 @@ cudaError_t launch_bf16_dh(const void* const* ptrs, float* delta, int b, const B
   bf16* dq = static_cast<bf16*>(const_cast<void*>(ptrs[6]));
   bf16* dk = static_cast<bf16*>(const_cast<void*>(ptrs[7]));
   bf16* dv = static_cast<bf16*>(const_cast<void*>(ptrs[8]));
-  constexpr int smem = bf16_smem_bytes<DH>();
   if (a.sq > 0) {  // the dkdv launch reads the D that this one writes
-    if (cudaError_t err = cudaFuncSetAttribute(
-            attn_bwd_dq_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+    if (cudaError_t err = cudaFuncSetAttribute(attn_bwd_dq_bf16_kernel<DH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               Plan::kDqSmem))
       return err;
     const dim3 grid_q(a.hq, b, (a.sq + kRows - 1) / kRows);
-    attn_bwd_dq_bf16_kernel<DH><<<grid_q, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dq,
-                                                                    a);
+    attn_bwd_dq_bf16_kernel<DH><<<grid_q, kThreads, Plan::kDqSmem, stream>>>(q, k, v, dout, lse,
+                                                                            delta, dq, a);
     if (cudaError_t err = cudaGetLastError()) return err;
   }
   if (a.sk == 0) return cudaSuccess;
-  if (cudaError_t err = cudaFuncSetAttribute(
-          attn_bwd_dkdv_bf16_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+  if (cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv_bf16_kernel<DH>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             Plan::kDkdvSmem))
     return err;
   const dim3 grid_kv(a.hkv, b, (a.sk + kKeys - 1) / kKeys);
-  attn_bwd_dkdv_bf16_kernel<DH><<<grid_kv, kThreads, smem, stream>>>(q, k, v, dout, lse, delta,
-                                                                     dk, dv, a);
+  attn_bwd_dkdv_bf16_kernel<DH><<<grid_kv, Plan::kDkdvThreads, Plan::kDkdvSmem, stream>>>(
+      q, k, v, dout, lse, delta, dk, dv, a);
   return cudaGetLastError();
 }
 
@@ -603,6 +703,7 @@ cudaError_t launch_bf16(const void* const* ptrs, float* delta, int b, int dh, co
     case 64: return launch_bf16_dh<64>(ptrs, delta, b, a, stream);
     case 80: return launch_bf16_dh<80>(ptrs, delta, b, a, stream);
     case 128: return launch_bf16_dh<128>(ptrs, delta, b, a, stream);
+    case 256: return launch_bf16_dh<256>(ptrs, delta, b, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

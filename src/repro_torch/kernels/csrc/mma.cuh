@@ -201,8 +201,10 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NT][4], AFn a_frag,
 
 // acc[n] (16 x 8 f32 tiles over DH / 8 n-tiles) += P (16 x 16*KC, as the f32
 // C tiles p[2*KC][4], rounded to bf16 here) times rows [0, 16*KC) of a k-major
-// padded tile: out[i][j] += sum_k P[i][k] * tile[k][j].
-template <int KC, int DH>
+// padded tile: out[i][j] += sum_k P[i][k] * tile[k][j].  LD, the elements
+// between the tile's rows, is a wider tile's when the DH columns are a range of
+// it (the dh-256 dK/dV kernel's half of the columns).
+template <int KC, int DH, int LD = Tile<DH>::kStride>
 __device__ __forceinline__ void mma_pv(float (&acc)[DH / 8][4], const float (&p)[2 * KC][4],
                                        const __nv_bfloat16* tile, int lane) {
 #pragma unroll
@@ -214,8 +216,7 @@ __device__ __forceinline__ void mma_pv(float (&acc)[DH / 8][4], const float (&p)
 #pragma unroll
     for (int dp = 0; dp < DH / 16; ++dp) {
       uint32_t b[4];
-      ldmatrix_x4_trans(b, tile + (kc * 16 + a_row(lane)) * Tile<DH>::kStride + dp * 16 +
-                               a_col(lane));
+      ldmatrix_x4_trans(b, tile + (kc * 16 + a_row(lane)) * LD + dp * 16 + a_col(lane));
       mma_bf16(acc[2 * dp], a, b[0], b[1]);
       mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
     }
@@ -251,14 +252,14 @@ struct AFrags {
 
 // Stores a warp's 16 x DH f32 accumulators (times `mul`) as bf16 rows
 // [row0, row0 + 16) of a (seq, DH) slice with row stride `ld`, rows at or past
-// row_end skipped: through the warp's own 16 rows of a padded tile, so that
-// every global store is 16 bytes.
-template <int DH>
+// row_end skipped: through the warp's own 16 rows of a padded tile (LD elements
+// between rows, as in mma_pv), so that every global store is 16 bytes.
+template <int DH, int LD = Tile<DH>::kStride>
 __device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4], float mul0, float mul1,
                                            __nv_bfloat16* stage, __nv_bfloat16* out,
                                            long long ld, int row0, int row_end, int lane) {
   const int g = lane >> 2, t = lane & 3;
-  constexpr int S = Tile<DH>::kStride;
+  constexpr int S = LD;
   __syncwarp();  // the warp's last reads of these rows are done
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {

@@ -15,9 +15,13 @@ Two modes:
     card holds: ``chip_smoke.py``'s ``[slice-moe-train]`` runs these steps at
     full width with the depth cut (3 and 1 layers).  The uncoded step's one
     group of 512 tokens drops (token, expert) pairs, as the JAX package's
-    does; the coded step's chunks of 128 tokens drop none.  The vlm needs
-    the attention backward at head dim 256 (ROADMAP B-2b), and
-    hubert-xlarge takes frames, not tokens.
+    does; the coded step's chunks of 128 tokens drop none.  The vlm and
+    hubert-xlarge take patch embeddings and frames, not tokens, so this
+    entry point refuses them; the vlm trains on the card through
+    ``make_coded_train_step`` (``chip_smoke.py``'s ``[slice-vlm-train]``:
+    full-width, full-depth paligemma-3b, attention forward and backward at
+    head dim 256), and hubert's training waits for the attention backward's
+    redesign at head dim 80 (ROADMAP B-4).
 
 Runs on the card unless ``--device cpu`` is given; with no card it raises
 rather than fall back.

@@ -32,9 +32,11 @@ PyTorch versions of the kernels on any device.  ``forward``, ``token_nll``
 and ``loss_fn`` run under autograd, each layer body under activation
 checkpointing as ``cfg.remat`` / ``cfg.remat_policy`` ask (``_remat``).  On
 the card, the kernels' backward kernels differentiate them: the dense, moe,
-ssm and hybrid families (the fused ``ssd_scan`` entry's backward is
-``csrc/ssd_scan_bwd.cu``).  Attention at head dim 256 has no backward
-kernel (ROADMAP B-2b), so the vlm family trains on the CPU only for now.
+ssm, hybrid and vlm families (the fused ``ssd_scan`` entry's backward is
+``csrc/ssd_scan_bwd.cu``; the vlm's attention backward runs at head dim
+256).  The audio family's gradient runs too, but its training on the card
+waits for the attention backward's redesign at head dim 80 over more than
+one key tile (ROADMAP B-4).
 """
 
 from __future__ import annotations

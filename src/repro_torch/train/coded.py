@@ -44,13 +44,15 @@ def value_and_grad(fn, params):
     """(fn(params), d fn / d params) for a scalar fn of a parameter tree.
 
     The parameters are differentiated through detached aliases, so the
-    caller's tensors are neither copied nor marked as requiring grad.
+    caller's tensors are neither copied nor marked as requiring grad.  A
+    leaf that ``fn`` does not use gets a zero gradient, as under ``jax.grad``
+    (hubert's token embedding: its batch is frames).
     """
     leaves, spec = tree_flatten(params)
     with torch.enable_grad():
         xs = [p.detach().requires_grad_(True) for p in leaves]
         value = fn(tree_unflatten(spec, xs))
-        grads = torch.autograd.grad(value, xs)
+        grads = torch.autograd.grad(value, xs, materialize_grads=True)
     return value.detach(), tree_unflatten(spec, list(grads))
 
 
@@ -68,8 +70,10 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, weight_decay: float =
 
 def chunk_loss_sum(params, cfg: ModelConfig, chunk_batch):
     """SUM-reduced loss over one chunk (partial gradients must add up to the
-    full-batch gradient, so per-chunk reduction is a sum over examples)."""
-    n_ex = chunk_batch["tokens"].shape[0]
+    full-batch gradient, so per-chunk reduction is a sum over examples).  The
+    examples are counted on ``labels``, which every family's batch has (an
+    audio batch has no ``tokens``)."""
+    n_ex = chunk_batch["labels"].shape[0]
     return loss_fn(params, cfg, chunk_batch, aux_weight=0.0) * n_ex
 
 
@@ -80,8 +84,10 @@ def coded_loss(params, cfg: ModelConfig, coded_batch, weights, num_chunks: int, 
     summed and divided by ``num_chunks * chunk_bs`` — the sum over slots of
     ``w[i, j] * chunk_loss_sum(chunk_ij)`` over the same normaliser.  Each
     chunk of ``chunk_bs`` sequences is one segment of the forward (a moe
-    layer's capacity groups stay within it)."""
-    n, slots, cb, seq = coded_batch["tokens"].shape[:4]
+    layer's capacity groups stay within it).  The grid and the label length
+    come from ``labels``: text tokens for a vlm (after its ``prefix_len``
+    patch embeddings), frames for audio."""
+    n, slots, cb, seq = coded_batch["labels"].shape[:4]
     flat = {k: v.reshape(n * slots * cb, *v.shape[3:]) for k, v in coded_batch.items()}
     nll, _ = token_nll(params, cfg, flat, plain=plain,            # aux_weight = 0
                        segment=cb * (cfg.prefix_len + seq))

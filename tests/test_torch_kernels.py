@@ -351,18 +351,21 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_attention_wrappers_refuse_head_dims_the_kernels_do_not_take():
-    """The forward takes head dims 32, 64, 80, 128 and 256 and refuses 48 and
-    512; the backward refuses 256 (paligemma-3b's), naming ROADMAP B-2b.  Each
-    raises before any device check or launch, and nothing falls back."""
+    """Both directions take head dims 32, 64, 80, 128 and 256 (the backward
+    at 256 for paligemma-3b's training) and refuse 48 and 512, before any
+    device check or launch; at 256 both pass the head-dim check and raise on
+    CPU tensors, and nothing falls back."""
     before = (fa_kernel.launches, fa_bwd.launches)
     for dh in (48, 512):
-        q = torch.ones(1, 2, 8, dh)
+        q, lse = torch.ones(1, 2, 8, dh), torch.ones(1, 2, 8)
         with pytest.raises(ValueError, match=rf"head_dim in \(32, 64, 80, 128, 256\), got {dh}"):
             fa_kernel(q, q, q)
+        with pytest.raises(ValueError, match=rf"head_dim in \(32, 64, 80, 128, 256\), got {dh}"):
+            fa_bwd(q, q, q, q, lse, q)
     q, lse = torch.ones(1, 2, 8, 256), torch.ones(1, 2, 8)
-    with pytest.raises(ValueError, match=r"head_dim in \(32, 64, 80, 128\), got 256.*B-2b"):
+    with pytest.raises(ValueError, match="CUDA"):  # 256 passes both head-dim checks
         fa_bwd(q, q, q, q, lse, q)
-    with pytest.raises(ValueError, match="CUDA"):  # 256 passes the forward's check
+    with pytest.raises(ValueError, match="CUDA"):
         fa_kernel(q, q, q)
     assert (fa_kernel.launches, fa_bwd.launches) == before
 

@@ -15,7 +15,9 @@ port's is held to the reference's ``prefill`` + ``decode_step`` at P + t.
 The plain attention at head dim 256 is held to the Pallas kernel in interpret
 mode and its jnp reference.  On the card (``-m cuda``, skipped without one):
 the head-dim-256 forward kernel against the plain version, and the card's
-SMOKE forwards against the CPU's.
+SMOKE forwards against the CPU's, with the vlm's gradient at head dim 256
+through the backward kernels (``tests/test_torch_vlm_train.py`` holds those
+kernels over the edges).
 The JAX package is imported inside the fixtures that use it, so that the card
 tests also run where JAX is not installed.
 """
@@ -360,15 +362,23 @@ def test_attention_plain_matches_pallas_at_head_dim_256(ref, b, hq, hkv, sq, sk,
 
 
 def test_attention_backward_refuses_head_dim_256_before_any_launch():
-    """The backward kernels take head dims up to 128 (256 is ROADMAP B-2b):
-    the wrapper and ``_AttentionFn`` with a gradient wanted raise before the
-    forward or backward launches, and nothing falls back."""
+    """The backward kernels take head dim 256 now, as the forward does: the
+    wrapper and ``_AttentionFn`` with a gradient wanted still refuse 48 and
+    512 before the forward or backward launches, and a CPU tensor at 256
+    raises rather than fall back to the plain version."""
     before = (fa_kernel.launches, fa_bwd.launches)
+    for dh in (48, 512):
+        q, lse = torch.ones(1, 8, 16, dh), torch.ones(1, 8, 16)
+        kv = torch.ones(1, 1, 16, dh)
+        with pytest.raises(ValueError, match=rf"head_dim in \(32, 64, 80, 128, 256\), got {dh}"):
+            fa_bwd(q, kv, kv, q, lse, q)
+        with pytest.raises(ValueError, match=rf"got {dh}"):
+            fa_ops._AttentionFn.apply(q, kv, kv, True, 0, True)
     q, lse = torch.ones(1, 8, 16, 256), torch.ones(1, 8, 16)
     kv = torch.ones(1, 1, 16, 256)
-    with pytest.raises(ValueError, match=r"head_dim in \(32, 64, 80, 128\), got 256.*B-2b"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa_bwd(q, kv, kv, q, lse, q)
-    with pytest.raises(ValueError, match="B-2b"):
+    with pytest.raises(ValueError, match="CUDA"):
         fa_ops._AttentionFn.apply(q, kv, kv, True, 0, True)
     assert (fa_kernel.launches, fa_bwd.launches) == before
 
@@ -422,8 +432,9 @@ def test_attention_kernel_matches_plain_at_head_dim_256(cuda_device, b, hq, hkv,
 @pytest.mark.parametrize("arch,head_dim", [(VLM, 256), (AUDIO, 64)])
 def test_card_smoke_forward_matches_the_cpu(cuda_device, arch, head_dim):
     """f32 SMOKE forwards on the card (the kernels) against the CPU's (the
-    plain versions), from the same parameters and batch; at head dim 256 a
-    call that wants a gradient raises before any launch (B-2b)."""
+    plain versions), from the same parameters and batch; at head dim 256 the
+    gradient of ``loss_fn`` too, through the backward kernels, against the
+    CPU's autograd of the plain path."""
     cfg = tcfgs.get_smoke(arch).replace(head_dim=head_dim)
     params = tm.init_params(cfg, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(8)
@@ -442,12 +453,16 @@ def test_card_smoke_forward_matches_the_cpu(cuda_device, arch, head_dim):
     assert fa_kernel.launches == before + cfg.num_layers
     torch.testing.assert_close(got.cpu(), want, **TOL)
     if head_dim == 256:
-        before = (fa_kernel.launches, fa_bwd.launches)
-        with pytest.raises(ValueError, match="B-2b"):
-            value_and_grad(lambda p: tm.loss_fn(p, cfg, {**card_batch,
-                                                         "labels": card_batch["tokens"]}),
-                           card_params)
-        assert (fa_kernel.launches, fa_bwd.launches) == before
+        before = fa_bwd.launches
+        loss, grads = value_and_grad(
+            lambda p: tm.loss_fn(p, cfg, {**card_batch, "labels": card_batch["tokens"]}),
+            card_params)
+        assert fa_bwd.launches == before + cfg.num_layers
+        want_loss, want = value_and_grad(
+            lambda p: tm.loss_fn(p, cfg, {**batch, "labels": batch["tokens"]}), params)
+        assert float(loss) == pytest.approx(float(want_loss), abs=GRAD_TOL)
+        for a, b in zip(tree_leaves(grads), tree_leaves(want)):
+            torch.testing.assert_close(a.cpu(), b, rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
 @pytest.mark.parametrize("arch", [VLM, AUDIO])
