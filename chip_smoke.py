@@ -205,7 +205,28 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       replayed-waves}, 2 models, n 8, batch 32 x 64 tokens, 8
                       jobs; simulated clocks, step ms, peak memory, exact
                       launches per step, its three gates; a profiled dc-gc step;
- 19. timings       -- each kernel, its plain version and the nearest PyTorch
+ 18b. harness      -- ``repro_torch.dist.run_harness`` (the paper's master and
+                      worker processes): 4 grad-mode worker processes on the
+                      card compute chunk gradients of full-width qwen2-0.5b cut
+                      to 2 of 24 layers, in f32 (a 664 MB vector a task, over
+                      pipes), and GC-encode them in one coded_combine launch an
+                      item; the master gates on the wall clock, decodes 4 jobs
+                      and holds each to its full-batch gradient on the card
+                      (decode_atol from a printed reckoning), on the GE-bursty
+                      trace of examples/dist_execution.py: GC (s 1), M-SGC (B 1,
+                      W 3, lambda 4), and GC with worker 0 killed after round 2
+                      and one respawn, whose replacement must rejoin.  First an
+                      in-process TaskComputer: exact launches of a GC row, an
+                      M-SGC d1 part and a d2 row, their values against the plain
+                      path, one reply's time through a pipe; the memory
+                      reckoning; then per run the rounds, measured and analytic
+                      makespan, each round's compute, wire legs and injected
+                      delay, the master's launches (its truth, exact), the
+                      fault-free runs' patterns replayed bit for bit by
+                      simulate_fast and by simulate_lockstep on the card (its
+                      gate launches = the CPU's plain calls), and the card's
+                      compute processes mid-run (the master and 4 workers);
+ 19. timings      -- each kernel, its plain version and the nearest PyTorch
                       library call at the main path's shapes: device time from
                       the profiler (CUDA events per call beside it), the least
                       time the card could take (published H100 peaks), achieved
@@ -244,6 +265,7 @@ or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -388,6 +410,29 @@ SSM_TRAIN_SEQ = 256
 SSM_GRAD = dict(layers=2, batch=2, seq=500)
 # bench_coded_train at full qwen2-0.5b width, [train-full]'s shapes
 CODED_TRAIN = dict(n=8, models=2, jobs=8, seq=64)
+# [harness]: run_harness with grad-mode workers at full qwen2-0.5b width, its
+# depth cut to 2 of 24 layers, in f32: 165,960,320 parameters, a 664 MB
+# gradient vector through the pipes per task (the tied embedding alone is 545
+# MB; full depth would be 1.98 GB a vector and about 95 GB through the pipes
+# over the two fault-free runs).  4 worker processes on the card and 4 jobs of
+# 32 x 64 tokens (a GC chunk is 8 sequences), over pipes: a vector is 10x the
+# TCP wire's 64 MiB frame bound, so TCP is held on the CPU.
+HARNESS = dict(layers=2, n=4, jobs=4, batch=32, seq=64, seed=0, time_scale=0.02)
+# the GE-bursty trace of examples/dist_execution.py
+HARNESS_GE = dict(seed=0, p_ns=0.09, p_sn=0.5, slow_factor=6.0, jitter=0.05)
+HARNESS_RUNS = (("gc", {"s": 1}), ("m-sgc", {"B": 1, "W": 3, "lam": 4}))
+# the third run: GC with worker 0 killed after round 2 and one respawn
+HARNESS_KILL = dict(worker=0, kill_after=2, respawns=1)
+# decode tolerance, relative to the largest entry of a job's full-batch f32
+# gradient: the decode sums the workers' f32 vectors, each a sum over chunk
+# gradients taken in other orders than the full batch's (2,048 token rows: about
+# sqrt(2048) * 2^-24 = 2.7e-6 relative), under decode weights of magnitude <= 2
+# and coefficients <= 1 (GC s 1, M-SGC lambda n: 0/1 sums), so ~1e-5 relative;
+# 1e-4 leaves 10x
+HARNESS_DECODE_REL = 1e-4
+# host memory the harness may plan to hold: its vectors' reckoning must fit
+# this share of MemAvailable at the phase's start
+HARNESS_HOST_SHARE = 0.8
 # Fig. 18: run_adaptive's switch from uncoded to m-sgc (benchmarks/run.py)
 ADAPTIVE = dict(n=64, J=60, t_probe=20, models=4, seed=11,
                 grid=[{"B": B, "W": B + 1, "lam": lam} for B in (1, 2) for lam in (8, 16, 24)])
@@ -851,6 +896,10 @@ def main() -> None:
     _scenarios(dev)
     _multimodel(dev)
     _coded_train(dev, cfg)
+
+    # 18b. harness: real master/worker coded rounds, grad-mode workers on the
+    # card at full qwen2-0.5b width
+    _harness(dev)
 
     # 19. timings at the main paths' shapes (bf16, as served and trained)
     rows = []
@@ -2619,6 +2668,390 @@ def _coded_train(dev, cfg) -> None:
                statistics.median(times[1:]) * 1e3)
     del tr, last
     torch.cuda.empty_cache()
+
+
+def _meminfo_gb(key: str = "MemAvailable") -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith(key + ":"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def _compute_apps() -> list[tuple[int, float]]:
+    """(pid, used MiB) of every process nvidia-smi lists on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return [(int(p), float(m)) for p, m in (line.split(",") for line in out.strip().splitlines()
+                                            if line.strip())]
+
+
+def _card_used_gb() -> float:
+    """Memory in use on the card, every process's (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout
+    return float(out.strip().splitlines()[0]) * 2**20 / 1e9
+
+
+def _harness_replay(name, params, delays, alpha, J):
+    """Walk a scheme over its simulated pattern: the vectors each round ships
+    (items per worker), the simulator's result."""
+    import numpy as np
+    from repro_torch.core import make_scheme, simulate_fast
+    from repro_torch.dist.master import _item_for
+
+    n = delays.shape[1]
+    sim = simulate_fast(make_scheme(name, n, J, **params), delays, mu=1.0, alpha=alpha, J=J)
+    sch = make_scheme(name, n, J, **params)
+    per_round = []
+    for t in range(1, J + sch.T + 1):
+        per = [0] * n
+        for mt in sch.assign(t):
+            if _item_for(sch, mt, list(range(1, J + 1))) is not None:
+                per[mt.worker] += 1
+        per_round.append(per)
+        sch.observe(t, sim.effective_pattern[t - 1])
+        sch.collect(t)
+    return np.array(per_round), sim
+
+
+def _pipe_s(obj, recv) -> float:
+    """Seconds to receive ``obj`` with ``recv`` from a pipe that a thread of
+    this process sends it into."""
+    import multiprocessing as mp
+    import threading
+
+    a, b = mp.Pipe()
+    sender = threading.Thread(target=b.send, args=({"values": [("v", obj)]},))
+    t0 = time.perf_counter()
+    sender.start()
+    recv(a)
+    dt = time.perf_counter() - t0
+    sender.join()
+    a.close()
+    b.close()
+    return dt
+
+
+def _harness_probe(dev, cfg, counters) -> dict:
+    """An in-process grad-mode TaskComputer on the card, as a worker runs it:
+    exact launches and the plain path's values for a GC row (k 2), an M-SGC
+    d1 part (k 1) and an M-SGC d2 row (k lambda+1 = 2; lambda = n has no D2,
+    so this row comes from the same B, W at lambda 1); the value's time and a
+    pickle round trip of its vector, which size the round timeouts; the
+    full-batch gradient's scale, which sizes the decode tolerance."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import make_scheme
+    from repro_torch.data.synthetic import chunk_boundaries
+    from repro_torch.dist import TaskComputer
+    from repro_torch.dist.master import _chunk_fractions, _item_for
+    from repro_torch.dist.transport import _recv
+    from repro_torch.dist.worker import ravel_into
+    from repro_torch.kernels.gc_coding import ref as gc_ref
+    from repro_torch.models import loss_fn
+    from repro_torch.train.coded import value_and_grad
+
+    h, phase = HARNESS, "harness"
+    n, J, B = h["n"], h["jobs"], h["batch"]
+    per = _per_step(cfg)
+    names = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "coded_combine")
+
+    def first(sch, kind):
+        for t in range(1, J + sch.T + 1):
+            for mt in sch.assign(t):
+                if mt.kind == kind and not mt.trivial:
+                    return sch, _item_for(sch, mt, list(range(1, J + 1)))
+            sch.observe(t, np.zeros(n, dtype=bool))
+            sch.collect(t)
+        fail(f"{phase}: no {kind} task in {sch.name}")
+
+    probes = [("gc row", *first(make_scheme("gc", n, J, **HARNESS_RUNS[0][1]), "ell")),
+              ("m-sgc d1", *first(make_scheme("m-sgc", n, J, **HARNESS_RUNS[1][1]), "d1")),
+              ("m-sgc d2 (lambda 1)",
+               *first(make_scheme("m-sgc", n, J, **{**HARNESS_RUNS[1][1], "lam": 1}), "d2"))]
+    tc = None
+    out = {}
+    for label, sch, item in probes:
+        bounds = tuple(chunk_boundaries(B, _chunk_fractions(sch)))
+        if tc is None:
+            tc = TaskComputer(h["seed"], "grad", 8, B, bounds, model_cfg=cfg, batch_size=B,
+                              seq_len=h["seq"], device="cuda")
+        tc.set_bounds(bounds)
+        tc.warmup()
+        torch.cuda.synchronize()
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        got = tc.value(item)
+        t_value = time.perf_counter() - t0
+        launches = {k: counters[k].launches for k in names}
+        k_chunks = len(item["chunks"])
+        want = {k: k_chunks * per[k] for k in names}
+        want["coded_combine"] = 1
+        say(phase, f"in-process TaskComputer, {label} {item['key']} (k {k_chunks}, rows "
+                   f"{[tc.bounds[c] for c in item['chunks']]}): launches {launches}; "
+                   f"value {t_value:.3f} s")
+        if launches != want:
+            fail(f"{phase}: {label} launched {launches}, want {want}")
+        # the plain path on the card: autograd of the plain versions, the plain
+        # combine
+        params, batch = tc._grad_data(item["job"])
+        parts = torch.empty((k_chunks, got.size), dtype=torch.float32, device=dev)
+        for r, c in enumerate(item["chunks"]):
+            lo, hi = tc.bounds[c]
+            cb = {key: v[lo:hi] for key, v in batch.items()}
+            _, grads = value_and_grad(
+                lambda p: loss_fn(p, cfg, cb, aux_weight=0.0, plain=True) * (hi - lo), params)
+            ravel_into(parts[r], grads)
+        plain = gc_ref.coded_combine(parts, torch.tensor(item["coeffs"], device=dev)).cpu().numpy()
+        err = float(np.abs(got - plain).max())
+        ok = np.allclose(got, plain, **CODED_GRAD_TOL)
+        say(phase, f"{label}: value against the plain path on the card: max_abs_err {err:.3e} "
+                   f"(rtol {CODED_GRAD_TOL['rtol']}, atol {CODED_GRAD_TOL['atol']}) "
+                   f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{phase}: {label}: the kernels' value disagrees with the plain path")
+        del parts, params, batch
+        if label == "gc row":
+            t0 = time.perf_counter()
+            back = pickle.loads(pickle.dumps(got, protocol=pickle.HIGHEST_PROTOCOL))
+            out.update(value_s=t_value, pickle_s=time.perf_counter() - t0, bytes=got.nbytes,
+                       size=got.size)
+            del back
+            # a reply through a pipe, as the master receives it: the port's
+            # bounded reads, and Connection.recv at a tenth of the size (its
+            # whole-remainder reads cost the square of the size)
+            tenth = got[:got.size // 10].copy()
+            conn_s = _pipe_s(tenth, lambda c: c.recv())
+            tenth_s = _pipe_s(tenth, _recv)
+            out["pipe_s"] = _pipe_s(got, _recv)
+            say(phase, f"one reply through a pipe: {got.nbytes / 1e6:.0f} MB in "
+                       f"{out['pipe_s']:.3f} s (bounded reads); {tenth.nbytes / 1e6:.0f} MB in "
+                       f"{tenth_s:.3f} s (bounded reads), {conn_s:.3f} s (Connection.recv); "
+                       f"a pickle round trip of the vector {out['pickle_s']:.3f} s")
+            chunk_sum = sum(tc.chunk_grad(1, c) for c in range(len(tc.bounds)))
+            full = tc.full_grad(1)
+            out["gmax"] = float(np.abs(full).max())
+            out["chunk_sum_err"] = float(np.abs(chunk_sum - full).max())
+            del chunk_sum, full
+    del tc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _harness(dev) -> dict:
+    """[harness]: ``run_harness`` end to end on the card (module docstring)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import GilbertElliotSource, simulate_lockstep
+    from repro_torch.dist import FaultSpec, HarnessConfig, run_harness
+    from repro_torch.kernels.gate_window import gate_window as gwk
+    from repro_torch.kernels.gate_window import ref as gwr
+
+    h, phase = HARNESS, "harness"
+    n, J, B, S = h["n"], h["jobs"], h["batch"], h["seq"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    host_avail = _meminfo_gb()
+    say(phase, f"before the phase: card {free / 1e9:.2f} GB free of {total / 1e9:.2f} GB "
+               f"(this process holds {torch.cuda.memory_reserved(dev) / 1e9:.2f} GB reserved); "
+               f"host MemAvailable {host_avail:.2f} GB")
+    cfg = get_config(ARCH).replace(num_layers=h["layers"], dtype="float32")
+    counters = _train_counters()
+    probe = _harness_probe(dev, cfg, counters)
+    vec_gb = probe["bytes"] / 1e9
+    say(phase, f"{ARCH} at full width, {h['layers']} of {get_config(ARCH).num_layers} layers, "
+               f"f32: {probe['size']:,} parameters, {vec_gb:.3f} GB a vector; {n} workers, "
+               f"{J} jobs of {B} x {S} tokens")
+
+    src = GilbertElliotSource(n=n, **HARNESS_GE)
+    delays = src.sample_delays(J + 8)
+    alpha = src.alpha
+    plans = {name: _harness_replay(name, params, delays, alpha, J)
+             for name, params in HARNESS_RUNS}
+    # host memory: the master keeps every non-straggler result until the run
+    # ends, each worker caches its last 5 rounds' values (the resend path), and
+    # a vector in flight is a pickled copy on each side of its pipe
+    plan_gb = {}
+    for name, (per_round, sim) in plans.items():
+        shipped = int(per_round.sum())
+        kept = int((per_round * ~sim.effective_pattern[:len(per_round)]).sum())
+        cached = max(int(per_round[max(0, t - 4):t + 1, w].sum())
+                     for w in range(n) for t in range(len(per_round)))
+        plan_gb[name] = (kept + n * cached + 2 * n) * vec_gb
+        say(phase, f"reckoning {name}: {len(per_round)} rounds, {shipped} vectors through the "
+                   f"pipes ({shipped * vec_gb:.1f} GB), the master keeps {kept} "
+                   f"({kept * vec_gb:.1f} GB), a worker caches <= {cached}; host peak "
+                   f"<= {plan_gb[name]:.1f} GB of {host_avail:.1f} GB available")
+    if max(plan_gb.values()) > HARNESS_HOST_SHARE * host_avail:
+        fail(f"{phase}: the reckoning {plan_gb} exceeds {HARNESS_HOST_SHARE} of MemAvailable")
+
+    atol = HARNESS_DECODE_REL * probe["gmax"]
+    say(phase, f"decode_atol {atol:.3e} = {HARNESS_DECODE_REL:g} x max|g| {probe['gmax']:.4e} "
+               f"(job 1's full-batch gradient); the chunks' sum against it: "
+               f"{probe['chunk_sum_err']:.3e}")
+    if probe["chunk_sum_err"] > atol:
+        fail(f"{phase}: the chunk gradients do not add up to the full-batch gradient")
+    # round timeouts from the probe: a worker's items computed in turn, then
+    # every vector of the round read by the master one after another (its
+    # pipe and a pickle round trip each), at 2x
+    max_items = max(int(p.max()) for p, _ in plans.values())
+    max_vectors = max(int(p.sum(axis=1).max()) for p, _ in plans.values())
+    wire_s = probe["pipe_s"] + probe["pickle_s"]
+
+    def timeouts(scale):
+        planned = float(delays.max()) + alpha
+        timeout = 2 * (planned * scale + max_items * probe["value_s"]
+                       + max_vectors * wire_s) + 5.0
+        return timeout, 3 * timeout + 30.0
+
+    base = dict(alpha=alpha, seed=h["seed"], compute="grad", model_cfg=cfg, batch_size=B,
+                seq_len=S, device="cuda", decode_atol=atol)
+    # polled while a run goes on: the card's compute processes (the first
+    # run), the card's memory in use by every process, the host's available
+    def poll(mon):
+        while not mon["stop"].is_set():
+            if mon["apps"]:
+                mon["snaps"].append(_compute_apps())
+            mon["card"] = max(mon["card"], _card_used_gb())
+            mon["host"] = min(mon["host"], _meminfo_gb())
+            mon["stop"].wait(0.5)
+
+    per_step = _per_step(cfg)
+    names = ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd", "coded_combine")
+    runs = [(name, params, h["time_scale"], {}) for name, params in HARNESS_RUNS]
+    kill = HARNESS_KILL
+    runs.append(("gc", HARNESS_RUNS[0][1], None, dict(
+        faults={kill["worker"]: FaultSpec(kill_after=kill["kill_after"])},
+        respawn_max_attempts=kill["respawns"])))
+    startup = None
+    results = {}
+    for k, (name, params, scale, extra) in enumerate(runs):
+        label = name if not extra else f"{name} kill {kill['worker']}@{kill['kill_after']}"
+        if scale is None:
+            # the rounds after the kill must outlast a worker's start-up (the
+            # first run's fleet start-up, 4 at once: an upper bound for 1), so
+            # the replacement rejoins before the run ends: their analytic
+            # time, scaled, is at least that
+            after = float(plans[name][1].round_times[kill["kill_after"]:J].sum())
+            scale = max(h["time_scale"], startup / after)
+        timeout, hard = timeouts(scale)
+        cfg_h = HarnessConfig(**base, time_scale=scale, round_timeout=timeout,
+                              round_hard_timeout=hard, **extra)
+        for c in counters.values():
+            c.launches = 0
+        gc.collect()
+        torch.cuda.empty_cache()
+        if k == 0:
+            apps_before = _compute_apps()
+        mon = {"apps": k == 0, "snaps": [], "stop": threading.Event(), "card": 0.0,
+               "host": _meminfo_gb()}
+        card0, host0 = _card_used_gb(), mon["host"]
+        thread = threading.Thread(target=poll, args=(mon,), daemon=True)
+        thread.start()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_call = time.perf_counter()
+        try:
+            res = run_harness(name, n, J, delays, params=params, config=cfg_h)
+        finally:
+            mon["stop"].set()
+            thread.join()
+        wall = time.perf_counter() - t_call
+        fleet_s = res.ledger.records[0].start - t_call if res.ledger.records else float("nan")
+        if k == 0:
+            startup = fleet_s
+        results[label] = res
+        say(phase, f"{label}: time_scale {scale:.4g}, round_timeout {timeout:.1f} s, hard "
+                   f"{hard:.1f} s; fleet start-up {fleet_s:.2f} s, run {wall:.2f} s; rounds "
+                   f"{res.ledger.rounds}, measured makespan {res.measured_makespan:.3f} s, "
+                   f"analytic {res.analytic_makespan:.3f} s (agreement {res.agreement:.3f}); "
+                   f"decoded {res.decoded_jobs}, decode_max_err {res.decode_max_err:.3e} (atol "
+                   f"{atol:.3e}); retries {res.retries}, waitouts {res.waitouts}, deaths "
+                   f"{res.deaths}, respawns {res.respawns}, rejoins {res.rejoins}; peaks: "
+                   f"the master's allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f} "
+                   f"GB, the card's in use {mon['card']:.2f} GB (before the run {card0:.2f}), "
+                   f"the host's used {host0 - mon['host']:.2f} GB over the run")
+        for rec in res.ledger.records:
+            cols = {f: [getattr(st, f) for st in rec.stats if getattr(st, f) is not None]
+                    for f in ("compute_s", "wire_send_s", "wire_recv_s", "delay_s")}
+            # the master's own share: the round's end after its last result
+            # (the gate, the loop, the mu-rule floor's sleep)
+            last = max((st.reported for st in rec.stats if st.reported is not None),
+                       default=rec.start)
+            say(phase, f"  round {rec.t}: {rec.duration_s:.3f} s (analytic {rec.analytic_s:.3f}),"
+                       f" stragglers {np.flatnonzero(rec.effective_row).tolist()}, waited "
+                       f"{rec.waited}; after the last result {rec.start + rec.duration_s - last:.3f}"
+                       f" s; per worker " + ", ".join(
+                           f"{f} {' '.join(f'{v:.3f}' for v in vals)}" for f, vals in cols.items()))
+        if res.aborted:
+            fail(f"{phase}: {label} aborted: {res.abort_reason}")
+        if sorted(res.decoded_jobs) != list(range(1, J + 1)) or res.decode_max_err > atol:
+            fail(f"{phase}: {label}: decoded {res.decoded_jobs}, err {res.decode_max_err}")
+        # the master's full-batch truth: one gradient a decoded job, on the card
+        launches = {c: counters[c].launches for c in names}
+        want = {c: J * per_step[c] for c in names}
+        want["coded_combine"] = 0
+        say(phase, f"{label}: the master's launches (its truth: one full-batch gradient a "
+                   f"job) {launches}")
+        if launches != want:
+            fail(f"{phase}: {label}: the master launched {launches}, want {want}")
+        if k == 0:
+            # nvidia-smi lists the processes of a container by PIDs of another
+            # namespace (every one as 1 on the card's host), so the check
+            # counts them, against the count before the run (the master)
+            snap = max(mon["snaps"], key=len, default=[])
+            say(phase, f"compute processes on the card (pid, MiB as nvidia-smi lists them): "
+                       f"before the run {apps_before}; mid-run, the fullest of "
+                       f"{len(mon['snaps'])} polls, {snap}")
+            if len(apps_before) != 1 or len(snap) < n + 1:
+                fail(f"{phase}: the master and {n} workers are not all on the card: {snap}")
+        if extra:
+            kinds = [ev["kind"] for ev in res.events if ev.get("worker") == kill["worker"]]
+            say(phase, f"{label}: worker {kill['worker']}'s events {res.events}")
+            if res.respawns < 1 or res.rejoins < 1 or not (
+                    "death" in kinds and "rejoin" in kinds
+                    and kinds.index("death") < kinds.index("respawn") < kinds.index("rejoin")):
+                fail(f"{phase}: {label}: the respawned worker did not rejoin: {res.events}")
+            continue
+        # fault-free: the recording replays bit for bit through the simulator,
+        # and through the lockstep engine on the card (its gate kernels)
+        sim = plans[name][1]
+        same = (np.array_equal(res.trace_model.pattern, sim.effective_pattern)
+                and res.decoded_jobs == sim.job_done_round
+                and np.allclose(res.analytic_round_times, sim.round_times * scale))
+        gwr.window_stats.calls = gwr.buffer_stats.calls = 0
+        cpu = simulate_lockstep(name, params, delays[None], mu=1.0, alpha=alpha, J=J,
+                                device="cpu")[0]
+        for g in (gwk.window_stats, gwk.buffer_stats):
+            g.launches = 0
+        card = simulate_lockstep(name, params, delays[None], mu=1.0, alpha=alpha, J=J,
+                                 device=dev)[0]
+        gate = (gwk.window_stats.launches, gwk.buffer_stats.launches)
+        plain_calls = (gwr.window_stats.calls, gwr.buffer_stats.calls)
+        lock_ok = (_sim_parity(sim, card, exact=False)
+                   and np.array_equal(card.effective_pattern, res.trace_model.pattern)
+                   and gate == plain_calls)
+        say(phase, f"{label}: recorded pattern {res.trace_model.pattern.astype(int).tolist()}; "
+                   f"simulate_fast replay {'bit for bit' if same else 'MISMATCH'}; "
+                   f"simulate_lockstep on the card {'equal' if lock_ok else 'MISMATCH'} (gate "
+                   f"launches window/buffer {gate}, the CPU's plain calls {plain_calls})")
+        if not (same and lock_ok):
+            fail(f"{phase}: {label}: the recording does not replay")
+    return {"startup_s": startup}
 
 
 def _gate_window_timings(dev) -> list:
