@@ -382,6 +382,9 @@ ATTN_DH256_MSGC = (VLM_SEQS["m-sgc"], *ATTN_DH256_TRAIN[1:])
 ATTN_DH256_TILE = (VLM_SEQS["gc"], 8, 1, 64, 64, 256, True, 0, None)
 # the share of the card's memory a trainer run's peak may fill
 TRAIN_MEMORY_SHARE = 0.9
+# [launch]: the sharded train step at full qwen2-0.5b width and depth over
+# sequences of train_4k's length, three steps; the GC step as [train-full]'s
+LAUNCH = dict(seq=4096, steps=3, seed=7, coded_seq=TRAIN["seq"])
 # the simulator: benchmarks/run.py's Table-1 grid (PARAMS, the GE chain calibrated
 # to Fig. 1, 64 traces of 44 rounds at n 256, alpha 8 = the source's slope)
 SIM = dict(n=256, traces=64, rounds=44, alpha=8.0, seed0=60, parity_traces=4)
@@ -900,6 +903,10 @@ def main() -> None:
     # 18b. harness: real master/worker coded rounds, grad-mode workers on the
     # card at full qwen2-0.5b width
     _harness(dev)
+
+    # 18c. launch: the launch tooling's sharded step on a one-rank NCCL mesh,
+    # bit-identical to the plain step, against the dry-run's count on meta
+    _launch(dev, heads_view)
 
     # 19. timings at the main paths' shapes (bf16, as served and trained)
     rows = []
@@ -3052,6 +3059,257 @@ def _harness(dev) -> dict:
         if not (same and lock_ok):
             fail(f"{phase}: {label}: the recording does not replay")
     return {"startup_s": startup}
+
+
+def _launch(dev, heads_view) -> None:
+    """[launch]: the launch tooling on the card (``repro_torch.launch``).
+
+    (b) first, on meta tensors over a (1, 1) mesh of the rank-only group: the
+    dry-run's count of one train step at full qwen2-0.5b width and depth over
+    b x 4,096 tokens, b the largest >= 2 whose reckoned peak (the counted
+    arguments and temporaries, one sequence's worth from the counts at b = 1
+    and 2, and the sharded run's parameters and moments kept for the
+    comparison) stays under ``TRAIN_MEMORY_SHARE`` of the card.  (a) On a real
+    one-rank NCCL mesh (``make_local_mesh(1, 1)``) the parameters, AdamW moments
+    and batch are placed by ``params_shardings`` / ``opt_shardings`` /
+    ``batch_shardings``: the bytes the card's live tensors ask for grow by the
+    counted argument bytes exactly (the allocator's own rounding, printed
+    beside, gives each block up to 1 MiB more).  Three steps
+    of ``make_train_step`` on the DTensors and three on plain tensors from the
+    same seed: the loss and every updated leaf bit-identical, the kernels'
+    launches equal and equal to ``_per_step``'s for 24 layers; then one GC
+    step (n 8, s 3, 64 tokens a sequence) the same way.  The counted
+    operations over the sharded step's time (CUDA events, mean of steps 2-3)
+    give its TFLOP/s and its share of 989 TFLOP/s bf16, a reading and not a
+    gate.  (c) The bf16 attention backward at the step's shape, its two
+    launches' device time, beside autograd of SDPA.  (d) ``run_pair`` of
+    qwen2-0.5b train_4k on both production meshes, plain and GC, on this
+    host's CPU: per-device operations, argument and collective bytes."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.mesh import local_group, make_local_mesh, make_mesh, rank_only_group
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.coded import make_coded_train_step, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    phase, t0 = "launch", time.perf_counter()
+    cfg = get_config(ARCH)
+    S, steps, seed = LAUNCH["seq"], LAUNCH["steps"], LAUNCH["seed"]
+    smi = nvidia_smi()
+    total = torch.cuda.get_device_properties(dev).total_memory
+
+    def shape(b, seq=S):
+        return InputShape("launch", seq, b, "train")
+
+    # (b) the count on meta tensors, before this phase makes a card tensor
+    with rank_only_group(1):
+        mesh = make_mesh((1, 1))
+        one, two = (dryrun.trace_pair(cfg, shape(b), mesh) for b in (1, 2))
+        held = [r["argument_bytes"] + r["temp_bytes"] for r in (one, two)]
+        per_seq, kept = held[1] - held[0], one["argument_bytes"]
+        room = TRAIN_MEMORY_SHARE * total
+        traced = {}
+
+        def reckon(b):
+            if b not in traced:
+                traced[b] = dryrun.trace_pair(cfg, shape(b), mesh)
+            return traced[b]["argument_bytes"] + traced[b]["temp_bytes"] + kept
+
+        # the linear guess from b = 1 and 2, then halving to the largest b that fits
+        lo, hi = 2, max(2, int((room - kept - held[0]) // max(per_seq, 1)) + 1)
+        if reckon(lo) > room:
+            fail(f"{phase}: two sequences of {S} tokens reckon {reckon(lo)} B, past {room} B")
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if reckon(mid) <= room else (lo, mid - 1)
+        b, rec = lo, traced[lo]
+        reckoned = reckon(b)
+    say(phase, f"reckoning (counted on meta tensors, torch {torch.__version__}): "
+               f"arguments + peak temporaries {held[0]} B at b=1, {held[1]} B at b=2, "
+               f"{per_seq} B a sequence of {S} tokens (the f32 log-softmax over "
+               f"{cfg.vocab_size} tokens alone is {S * cfg.vocab_size * 4} B); with the sharded "
+               f"run's {kept} B kept, b={b} reckons {reckoned} B of {TRAIN_MEMORY_SHARE:g} x "
+               f"{total} B; trace {rec['seconds']:.1f} s")
+    T, L, d, f, V = b * S, cfg.num_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    layer = 2 * T * (d * (hq + 2 * hkv) * dh + hq * dh * d + 3 * d * f) + 4 * b * hq * S * S * dh
+    formula = 4 * L * layer - L * 2 * T * f * d + 6 * T * d * V
+    n_layers = cfg.param_count() - V * d - d
+    say(phase, f"counted operations a step {rec['flops']} (the plain path on meta: its attention "
+               f"takes every (q, k) pair); formula {formula} (remat: each layer's forward again "
+               f"but its w_down, the head once and its backward twice); 8 N T = {8 * n_layers * T} "
+               f"with N {n_layers} layer parameters, + 16 b hq S^2 dh = "
+               f"{16 * b * hq * S * S * dh} attention, + 6 T d V = {6 * T * d * V} head")
+    if rec["flops"] != formula:
+        fail(f"{phase}: the count {rec['flops']} is not the formula's {formula}")
+
+    counters = {k: v for k, v in _train_counters().items()
+                if k in ("flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd")}
+    want = {k: v * steps for k, v in _per_step(cfg).items() if k in counters}
+
+    def launched(fn):
+        before = {k: c.launches for k, c in counters.items()}
+        fn()
+        torch.cuda.synchronize()
+        return {k: c.launches - before[k] for k, c in counters.items()}
+
+    def inputs(batch_shape):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, gen)
+        tokens = torch.randint(0, V, batch_shape, generator=gen, device=dev, dtype=torch.int32)
+        return params, {"tokens": tokens, "labels": tokens.clone()}
+
+    def run(step, params, opt, batch, extra=(), n=steps):
+        losses, ms = [], []
+        for _ in range(n):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            params, opt, metrics = step(params, opt, batch, *extra)
+            end.record()
+            losses.append(metrics["loss"])
+            ms.append((start, end))
+        torch.cuda.synchronize()
+        return params, opt, losses, [s.elapsed_time(e) for s, e in ms]
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def same(phase_what, got, want_):
+        bad = [i for i, (x, y) in enumerate(zip(got, want_)) if not torch.equal(full(x), y)]
+        if len(got) != len(want_) or bad:
+            fail(f"{phase}: {phase_what} differ from the plain step's at leaves {bad[:8]}")
+
+    # (a) the sharded step on a one-rank NCCL mesh, then the plain one
+    with local_group("cuda"):
+        mesh = make_local_mesh(1, 1)
+        def held():
+            """(bytes the live tensors asked for, bytes the allocator gave
+            them): its blocks round each request up, a large one by up to 1
+            MiB, where the rest of its segment is too small to split off."""
+            torch.cuda.synchronize()
+            return (torch.cuda.memory_stats(dev)["requested_bytes.all.current"],
+                    torch.cuda.memory_allocated(dev))
+
+        base = held()
+        params, batch = inputs((b, S))
+        p_shard = sh.params_shardings(cfg, params, mesh)
+        params = sh.place(params, p_shard, mesh)
+        opt = adamw_init(params)
+        opt = sh.place(opt, sh.opt_shardings(cfg, opt, mesh, p_shard), mesh)
+        batch = sh.place(batch, sh.batch_shardings(cfg, batch, mesh), mesh)
+        asked, given = (now - then for now, then in zip(held(), base))
+        n_tensors = len(tree_leaves((params, opt.m, opt.v, batch)))
+        say(phase, f"placed on make_local_mesh(1, 1), {n_tensors} tensors: the card's live "
+                   f"tensors asked for {asked} B more (allocated {given} B), the count "
+                   f"{rec['argument_bytes']} B")
+        if asked != rec["argument_bytes"]:
+            fail(f"{phase}: the placed arguments hold {asked} B on the card, the count says "
+                 f"{rec['argument_bytes']} B")
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = []
+        with sh.step_context(params):
+            got = launched(lambda: out.append(run(make_train_step(cfg), params, opt, batch)))
+        params, opt, d_losses, d_ms = out[0]
+        d_peak = torch.cuda.max_memory_allocated(dev)
+        del batch
+        p2, b2 = inputs((b, S))
+        out = []
+        plain = launched(lambda: out.append(run(make_train_step(cfg), p2, adamw_init(p2), b2)))
+        p2, o2, p_losses, p_ms = out[0]
+        same("the losses", d_losses, p_losses)
+        same("the updated parameters", tree_leaves(params), tree_leaves(p2))
+        same("the AdamW moments", tree_leaves((opt.m, opt.v)), tree_leaves((o2.m, o2.v)))
+        if got != plain or got != want:
+            fail(f"{phase}: launches sharded {got}, plain {plain}, _per_step x {steps} {want}")
+        step_ms = statistics.mean(d_ms[1:])
+        rate = rec["flops"] / step_ms / 1e9
+        say(phase, f"{steps} steps at b={b} x {S}, loss {[float(full(x)) for x in d_losses]}: "
+                   f"sharded and plain bit-identical (loss, {len(tree_leaves(params))} parameters,"
+                   f" moments); launches {got} = plain = _per_step x {steps}; step ms sharded "
+                   f"{[round(x, 2) for x in d_ms]}, plain {[round(x, 2) for x in p_ms]}; peak "
+                   f"{d_peak} B; {rate:.1f} TFLOP/s counted over the sharded step (mean of steps "
+                   f"2-{steps}), {rate / 989:.4f} of 989 TFLOP/s bf16 [{smi}]")
+        del params, opt, p2, o2, b2, out
+        torch.cuda.empty_cache()
+
+        # the GC step, n 8, s 3, chunks of TRAIN["batch"] // n sequences of 64 tokens
+        n, s_ = TRAIN["n"], TRAIN_SCHEMES["gc"]["s"]
+        grid = (n, s_ + 1, TRAIN["batch"] // n, LAUNCH["coded_seq"])
+        weights = torch.rand((n, s_ + 1), generator=torch.Generator().manual_seed(seed)).to(dev)
+        step = make_coded_train_step(cfg, n, s_)
+        params, batch = inputs(grid)
+        p_shard = sh.params_shardings(cfg, params, mesh)
+        params = sh.place(params, p_shard, mesh)
+        opt = adamw_init(params)
+        opt = sh.place(opt, sh.opt_shardings(cfg, opt, mesh, p_shard), mesh)
+        batch = sh.place(batch, sh.batch_shardings(cfg, batch, mesh), mesh)
+        w = sh.place(weights, sh.replicated(mesh), mesh)
+        out = []
+        with sh.step_context(params):
+            got = launched(lambda: out.append(run(step, params, opt, batch, (w,), n=1)))
+        params, opt, d_losses, _ = out[0]
+        p2, b2 = inputs(grid)
+        out = []
+        plain = launched(lambda: out.append(run(step, p2, adamw_init(p2), b2, (weights,), n=1)))
+        p2, o2, p_losses, _ = out[0]
+        same("the GC step's loss", d_losses, p_losses)
+        same("the GC step's parameters", tree_leaves((params, opt.m, opt.v)),
+             tree_leaves((p2, o2.m, o2.v)))
+        want1 = {k: v // steps for k, v in want.items()}
+        if got != plain or got != want1:
+            fail(f"{phase}: GC launches sharded {got}, plain {plain}, _per_step {want1}")
+        say(phase, f"GC step (n {n}, s {s_}, {grid}): sharded and plain bit-identical, "
+                   f"launches {got}")
+        del params, opt, p2, o2, batch, b2, out
+        torch.cuda.empty_cache()
+
+    # (c) the bf16 attention backward at the step's shape, beside SDPA's
+    q, do = (heads_view(b, hq, S, dh, torch.bfloat16) for _ in range(2))
+    k, v = (heads_view(b, hkv, S, dh, torch.bfloat16) for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+    def bwd():
+        return flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+
+    by_launch = _launch_ms(bwd, 5)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    y_lib = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, is_causal=True,
+                                                             enable_gqa=True)
+
+    def lib():
+        return torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True)
+
+    # CUDA events beside the profiler, which at times records no activity
+    say(phase, f"attention backward bf16 at head dim {dh} {tuple(q.shape)}, kv {tuple(k.shape)}, "
+               f"causal, {S // 64} key tiles: device ms a call by launch "
+               + (", ".join(f"{name} {ms:.5f}" for name, ms in by_launch.items()) or "none recorded")
+               + f"; CUDA events {_cuda_ms(bwd, 5):.5f} ms a call; autograd of SDPA "
+               f"{_ms(_device_ms(lib, 5))} (CUDA events {_cuda_ms(lib, 5):.5f}) [{smi}]")
+    del q, k, v, do, out, lse, qr, kr, vr, y_lib
+    torch.cuda.empty_cache()
+
+    # (d) the dry-run's production pairs on this host
+    for multi_pod in (False, True):
+        for coded in (False, "gc"):
+            r = dryrun.run_pair(ARCH, "train_4k", multi_pod=multi_pod, coded=coded,
+                                verbose=False)
+            if r["status"] != "ok":
+                fail(f"{phase}: dry-run {r}")
+            say(phase, f"dry-run {ARCH} train_4k {r['mesh']} coded {coded}: operations a "
+                       f"device {r['flops_per_device']}, argument bytes "
+                       f"{r['memory']['argument_bytes']}, collective bytes "
+                       f"{r['collectives']['total_bytes']}, trace {r['lower_s']} s (counted on "
+                       f"meta tensors, torch {r['torch_version']})")
+    say(phase, f"phase wall {time.perf_counter() - t0:.1f} s")
 
 
 def _gate_window_timings(dev) -> list:

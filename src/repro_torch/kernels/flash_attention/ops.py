@@ -5,7 +5,12 @@ CUDA tensor to the kernels at every sequence length, forward and backward
 (``_AttentionFn``), which launch or raise, at every head dim the forward
 takes (32, 64, 80, 128 and 256: the vlm trains on the card at 256; hubert's
 training at 80 over 500 frames waits for that backward's redesign, ROADMAP
-B-4).  Another head dim raises before any launch.  The JAX package's fallback to its
+B-4).  Another head dim raises before any launch.  A meta tensor (the
+dry-run's: shapes only) takes the plain version's ops, which are what its count
+reads.  DTensors run the same choice on their local shards where the batch and
+the heads may be sharded, a q head always with its kv head; a sharded sequence
+or head dim, or a head split that does not divide the kv heads, is gathered
+first (``repro_torch.dtensor.local_shards``).  The JAX package's fallback to its
 dense reference below 128 and its padding to 128 follow from the TPU's block
 shape, and the port keeps neither: the kernels mask ragged edges themselves.
 """
@@ -13,6 +18,8 @@ shape, and the port keeps neither: the kernels mask ragged edges themselves.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.dtensor import is_dtensor, local_shards
 
 from . import ref
 from .flash_attention import aligned16
@@ -41,7 +48,10 @@ class _AttentionFn(torch.autograd.Function):
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
-    if q.device.type == "cpu":
+    if is_dtensor(q):
+        return local_shards(lambda *qkv: attention(*qkv, causal=causal, window=window),
+                            [q, k, v], (0, 1))
+    if q.device.type in ("cpu", "meta"):
         return ref.attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"attention: no implementation for device {q.device}")

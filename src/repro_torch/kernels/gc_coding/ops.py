@@ -1,7 +1,7 @@
 """Public coded combine: dispatches on the tensors' device.
 
 A CPU tensor goes to the plain version; a CUDA tensor to the kernel, which
-launches or raises.  The JAX package pads D to a multiple of 128 for the TPU's
+launches or raises; a meta tensor (shapes only) to the plain version's ops.  The JAX package pads D to a multiple of 128 for the TPU's
 lanes; the CUDA kernel takes any D, so nothing is padded here.
 """
 
@@ -20,12 +20,12 @@ from .gc_coding import coded_combine as _kernel
 def coded_combine(parts: torch.Tensor, weights) -> torch.Tensor:
     """weights @ parts for (k, D) stacked flat gradients, any D.  weights: (k,)
     values (a tensor, array or list), taken in f32."""
-    w = torch.as_tensor(weights, dtype=torch.float32, device=parts.device)
-    if parts.device.type == "cpu":
-        return ref.coded_combine(parts, w)
-    if parts.device.type != "cuda":
+    if parts.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"coded_combine: no implementation for device {parts.device}")
-    return _kernel(parts, w)
+    w = torch.as_tensor(weights, dtype=torch.float32, device=parts.device)
+    if parts.device.type == "cuda":
+        return _kernel(parts, w)
+    return ref.coded_combine(parts, w)
 
 
 def coded_combine_tree(tree, weights):

@@ -7,12 +7,18 @@ tensor to the kernels, which launch or raise.  The fused entry
 ``ssd_chunk_scan`` is differentiable on the card: when a gradient is wanted it
 runs through ``_SSDChunkScanFn``, whose backward is the kernel of
 ``csrc/ssd_scan_bwd.cu``.  ``ssd_intra_chunk`` stays forward only, as the JAX
-package's Pallas kernel is (ROADMAP C-2); no path differentiates it.
+package's Pallas kernel is (ROADMAP C-2); no path differentiates it.  A meta
+tensor (the dry-run's: shapes only) takes the plain versions' ops, which are
+what its count reads; DTensors run ``ssd_chunk_scan``'s choice on their local
+shards of the batch, every other dimension gathered first
+(``repro_torch.dtensor.local_shards``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.dtensor import is_dtensor, local_shards
 
 from . import ref
 from .ssd_scan import ssd_chunk_scan as _scan_kernel
@@ -55,7 +61,7 @@ def ssd_intra_chunk(xc, dtc, cum, Bc, Cc) -> torch.Tensor:
     Returns y_intra (b, nc, Q, nh, hd) f32."""
     b, nc, Q, nh, hd = xc.shape
     x, dt, cm, B, C = (_flat(a) for a in (xc, dtc, cum, Bc, Cc))
-    if xc.device.type == "cpu":
+    if xc.device.type in ("cpu", "meta"):
         y = ref.ssd_intra_chunk(x, dt, cm, B, C)
     else:
         if _wants_grad((x, dt, cm, B, C)):
@@ -74,7 +80,10 @@ def ssd_chunk_scan(xc, dtc, cum, Bc, Cc, h_prev, D, s: int,
     each chunk; D (nh,).  Returns y (b, s, nh, hd) in ``out_dtype``:
     y_intra + exp(cum) C . h_prev + D x over the first s rows, summed in f32
     and cast once."""
-    if xc.device.type == "cpu":
+    if is_dtensor(xc):
+        return local_shards(lambda *a: ssd_chunk_scan(*a, s, out_dtype),
+                            [xc, dtc, cum, Bc, Cc, h_prev], (0,), [D])
+    if xc.device.type in ("cpu", "meta"):
         return ref.ssd_chunk_scan(xc, dtc, cum, Bc, Cc, h_prev, D, s, out_dtype)
     _check_device("ssd_chunk_scan", xc.device)
     return _kernel_path(xc, dtc, cum, Bc, Cc, h_prev, D, s, out_dtype)

@@ -50,15 +50,17 @@ class ModelConfig:
     # JAX package: Pallas kernels vs jnp path.  Never read by the port,
     # which dispatches on the tensors' device.
     use_pallas: bool = False
-    # Unroll the layer scan.  XLA's cost_analysis counts a while-loop
-    # body ONCE (not x trip-count), so the dry-run lowers an unrolled
-    # twin of each step to get true per-step FLOPs/bytes/collectives.
+    # JAX package: unroll the layer scan, so that XLA's cost analysis, which
+    # counts a while-loop body once, counts every layer.  Never read by the
+    # port, whose layer loop is a Python loop and so always unrolled.
     scan_unroll: bool = False
     # FSDP-style activation constraint: when non-empty, layer bodies pin
-    # hidden states to P(act_batch_axes, act_seq_axis, None) so XLA
-    # all-gathers the (sharded) params instead of psumming activations
+    # hidden states to (act_batch_axes, act_seq_axis, whole) so that the
+    # (sharded) params are gathered rather than the activations summed
     # (§Perf).  act_seq_axis="model" gives Megatron-style sequence
-    # parallelism (long-sequence prefill where batch < mesh).
+    # parallelism (long-sequence prefill where batch < mesh).  The port reads
+    # them in ``transformer._act_constraint``, which redistributes DTensor
+    # hidden states to that layout; plain tensors pass through.
     act_batch_axes: tuple = ()
     act_seq_axis: str = ""
     # activation-checkpoint policy: "full" | "dots" | "none" (see §Perf)

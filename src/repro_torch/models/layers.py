@@ -18,6 +18,7 @@ import contextvars
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dtensor import grad_in_layout, is_dtensor, local_shards, split_dim
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.rmsnorm import ops as rn_ops
@@ -38,10 +39,16 @@ def _span(name: str):
 # -- init helpers -------------------------------------------------------------
 
 
+def init_device(gen: torch.Generator | None) -> torch.device:
+    """Where the init draws: ``gen``'s device, or with no generator the meta
+    device (shapes and dtypes only, no storage)."""
+    return torch.device("meta") if gen is None else gen.device
+
+
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
                scale: float | None = None) -> torch.Tensor:
     scale = scale if scale is not None else d_in ** -0.5
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * scale
+    w = torch.randn((d_in, d_out), generator=gen, device=init_device(gen)) * scale
     return w.to(dtype)
 
 
@@ -100,7 +107,7 @@ def attention_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     }
     if cfg.qkv_bias:
         for name, width in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
-            p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
+            p[name] = torch.zeros((width,), dtype=dtype, device=init_device(gen))
     return p
 
 
@@ -113,9 +120,9 @@ def _project_qkv(p, x, cfg, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, cfg.num_heads, dh).transpose(1, 2)
-    k = k.reshape(b, s, cfg.num_kv_heads, dh).transpose(1, 2)
-    v = v.reshape(b, s, cfg.num_kv_heads, dh).transpose(1, 2)
+    q = split_dim(q, -1, cfg.num_heads).reshape(b, s, cfg.num_heads, dh).transpose(1, 2)
+    k = split_dim(k, -1, cfg.num_kv_heads).reshape(b, s, cfg.num_kv_heads, dh).transpose(1, 2)
+    v = split_dim(v, -1, cfg.num_kv_heads).reshape(b, s, cfg.num_kv_heads, dh).transpose(1, 2)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -130,7 +137,7 @@ def attention_apply(p, x, cfg, *, positions=None, plain: bool = False):
     out = multihead_attention(
         q, k, v, causal=cfg.causal, window=cfg.sliding_window, plain=plain
     )
-    out = out.transpose(1, 2).reshape(b, s, -1)
+    out = grad_in_layout(out.transpose(1, 2).reshape(b, s, -1))
     return out @ p["wo"], (k, v)
 
 
@@ -168,17 +175,29 @@ def attention_decode(p, x, cache_k, cache_v, pos: int, cfg):
     # cache's dtype with f32 accumulation and f32 scores, as the JAX package
     # does (casting the whole cache to f32 would double its read traffic).
     group = cfg.num_heads // cfg.num_kv_heads
-    qg = q.reshape(b, cfg.num_kv_heads, group, dh).to(cache_k.dtype)
-    s = _f32_product(qg, cache_k.transpose(-1, -2)) * (dh ** -0.5)  # (b, hkv, g, S)
-    k_pos = torch.arange(cache_k.shape[2], device=x.device)
+    qg = split_dim(q, 1, cfg.num_kv_heads).reshape(b, cfg.num_kv_heads, group, dh)
+    qg = qg.to(cache_k.dtype)
+    core = lambda qg, ck, cv: _decode_core(qg, ck, cv, pos, cfg)  # noqa: E731
+    # on DTensors each rank takes its batch rows and kv heads, the cache's
+    # sequence gathered where it is sharded (``local_shards``)
+    out = (local_shards(core, [qg, cache_k, cache_v], (0, 1)) if is_dtensor(qg)
+           else core(qg, cache_k, cache_v))
+    out = out.to(x.dtype).reshape(b, 1, cfg.num_heads * dh)
+    return out @ p["wo"]
+
+
+def _decode_core(qg, cache_k, cache_v, pos: int, cfg):
+    """The decode step's attention: qg (b, hkv, g, dh) against the cache's
+    positions up to ``pos`` (and within the window); (b, hkv, g, dh) in the
+    cache's dtype."""
+    s = _f32_product(qg, cache_k.transpose(-1, -2)) * (cfg.head_dim_ ** -0.5)  # (b, hkv, g, S)
+    k_pos = torch.arange(cache_k.shape[2], device=qg.device)
     valid = k_pos <= pos
     if cfg.sliding_window > 0:
         valid &= (pos - k_pos) < cfg.sliding_window
     s = s.masked_fill(~valid, NEG_INF)
     pvals = torch.softmax(s, dim=-1)
-    out = (pvals.to(cache_v.dtype) @ cache_v).to(x.dtype)           # (b, hkv, g, dh)
-    out = out.reshape(b, 1, cfg.num_heads * dh)
-    return out @ p["wo"]
+    return pvals.to(cache_v.dtype) @ cache_v
 
 
 # -- SwiGLU MLP ---------------------------------------------------------------
@@ -203,7 +222,7 @@ def moe_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     d, e_ff, E = cfg.d_model, cfg.expert_d_ff, cfg.num_experts
 
     def experts(d_in, d_out):
-        w = torch.randn((E, d_in, d_out), generator=gen, device=gen.device) * d_in ** -0.5
+        w = torch.randn((E, d_in, d_out), generator=gen, device=init_device(gen)) * d_in ** -0.5
         return w.to(dtype)
 
     p = {
@@ -360,6 +379,9 @@ def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 102
     values cast to the model dtype: one f32 accumulation, rounded once, and no
     atomics, so the forward is deterministic on the card.
 
+    On the meta device (the dry-run) no routing exists, and each expert takes
+    G x Cg rows, the capacity form's.
+
     Cost of a layer on the card: one host sync (the experts' row counts go to
     the host to slice the sorted rows), some 70 device launches for the
     router, sorts, gathers, combine, aux and shared experts, and 5 for each
@@ -377,64 +399,155 @@ def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 102
             raise ValueError(f"segments of {segment} tokens do not split the batch's {T}")
         Tg, Cg = moe_groups(segment, cfg, capacity_factor, group_size)
         xt = x.reshape(T, d)
-        probs = torch.softmax((xt @ p["router"]).float(), dim=-1)               # (T, E)
-        log, again = _ROUTE_LOG.get(), _RECOMPUTE.get()
-        ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-        if log is None:
-            idx = order[:, :K]
-        elif again is not None:
-            if log.layers[again] != layer:
-                raise RuntimeError(f"the recompute of layer {layer} found the record of layer "
-                                   f"{log.layers[again]} where its forward's should be")
-            idx = log.calls[again][0]
+        if is_dtensor(xt):
+            out, me, ce = _moe_sharded(p, xt, cfg, Tg, Cg, segment, layer)
         else:
-            idx = log.experts(layer, order[:, :K])
-        gate = probs.gather(1, idx)
-        gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
-
-        # a token picks each expert at most once: its choices as a (T, E) one-hot
-        chosen = torch.zeros_like(probs).scatter_(1, idx, 1.0)
-        kept = None
-        if Cg < Tg:
-            pos = chosen.view(T // Tg, Tg, E).cumsum(1).view(T, E).gather(1, idx) - 1.0
-            kept = pos < Cg
-        if log is not None and again is None:
-            gap = ranked[:, K - 1] - ranked[:, K] if K < E else torch.full_like(probs[:, 0], 1.0)
-            log.record(layer, idx, kept, gap.detach())
-
-        # the kept pairs by expert; a dropped pair sorts last, as expert E
-        pair_e = idx.reshape(-1) if kept is None else idx.masked_fill(~kept, E).reshape(-1)
-        by_e = torch.argsort(pair_e, stable=True)
-        counts = torch.zeros(E + 1, dtype=torch.long, device=x.device)
-        counts = counts.index_add_(0, pair_e, torch.ones_like(pair_e)).tolist()  # host sync
-        n = T * K - counts[E]
-        # each kept pair's row of x, gathered from the (T * K, d) copy of xt
-        # repeated over K, whose rows are the pairs: no index repeats, so the
-        # gather's backward writes each row once and expand's backward sums a
-        # token's K rows in a fixed order (deterministic on the card, where an
-        # accumulating scatter over repeated indices need not be)
-        rows = xt[:, None].expand(T, K, d).reshape(T * K, d)[by_e[:n]]
-        # each expert's rows as one split, whose backward is one concatenation
-        # (a slice's backward would write a zero-padded (n, d) gradient an
-        # expert and add them up)
-        outs = []
-        for wg, wu, wd, xe in zip(p["w_gate"].unbind(0), p["w_up"].unbind(0),
-                                  p["w_down"].unbind(0), rows.split(counts[:E])):
-            if len(xe):
-                outs.append((F.silu(xe @ wg) * (xe @ wu)) @ wd)
-        outs.append(xt.new_zeros((1, d)))                  # what a dropped pair reads
-        y = torch.cat(outs)                                # (n + 1, d)
-        # each pair's row in y: its place in the sorted order, or the zero row.
-        # Only the zero row repeats (once for each dropped pair), and its
-        # gradient is thrown away: it is a constant, not an expert's output.
-        slot = torch.empty_like(by_e)
-        slot[by_e] = torch.arange(T * K, device=x.device)
-        routed = torch.bmm(gate.to(x.dtype)[:, None, :], y[slot.clamp_(max=n)].view(T, K, d))
-        out = routed.view(T, d)
-        if cfg.num_shared_experts:
-            out = out + mlp_apply(p["shared"], xt)
-
-        me = probs.mean(0)
-        ce = chosen.mean(0)
+            gate, idx, kept, me, ce = _moe_route(p["router"], xt, cfg, Tg, Cg, layer)
+            out = _moe_experts(p, xt, gate, idx, kept, cfg, Tg, Cg)
         aux = E * (me * ce).sum() / K
         return out.reshape(b, s, d), aux
+
+
+def _moe_route(router, xt, cfg, Tg: int, Cg: int, layer: int):
+    """The routing of ``moe_apply`` over the (T, d) tokens ``xt``: (gate (T, K),
+    idx (T, K), kept (T, K) or None where dropless, the mean probability and
+    the mean choice of each expert)."""
+    T = xt.shape[0]
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    probs = torch.softmax((xt @ router).float(), dim=-1)                    # (T, E)
+    log, again = _ROUTE_LOG.get(), _RECOMPUTE.get()
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    if log is None:
+        idx = order[:, :K]
+    elif again is not None:
+        if log.layers[again] != layer:
+            raise RuntimeError(f"the recompute of layer {layer} found the record of layer "
+                               f"{log.layers[again]} where its forward's should be")
+        idx = log.calls[again][0]
+    else:
+        idx = log.experts(layer, order[:, :K])
+    gate = probs.gather(1, idx)
+    gate = gate / gate.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    # a token picks each expert at most once: its choices as a (T, E) one-hot
+    chosen = torch.zeros_like(probs).scatter_(1, idx, 1.0)
+    kept = None
+    if Cg < Tg:
+        pos = chosen.view(T // Tg, Tg, E).cumsum(1).view(T, E).gather(1, idx) - 1.0
+        kept = pos < Cg
+    if log is not None and again is None:
+        gap = ranked[:, K - 1] - ranked[:, K] if K < E else torch.full_like(probs[:, 0], 1.0)
+        log.record(layer, idx, kept, gap.detach())
+    return gate, idx, kept, probs.mean(0), chosen.mean(0)
+
+
+def _moe_experts(p, xt, gate, idx, kept, cfg, Tg: int, Cg: int):
+    """The experts' part of ``moe_apply``: each kept (token, expert) pair
+    through its expert, combined by ``gate``, and the shared experts over
+    every token.  Returns (T, d)."""
+    T, d = xt.shape
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    # the kept pairs by expert; a dropped pair sorts last, as expert E
+    pair_e = idx.reshape(-1) if kept is None else idx.masked_fill(~kept, E).reshape(-1)
+    by_e = torch.argsort(pair_e, stable=True)
+    if xt.device.type == "meta":
+        # shapes only, so no routing: each expert takes the G x Cg rows of
+        # the JAX package's capacity form, the most a step can route to it,
+        # and its products are that package's dispatch work
+        counts = [T // Tg * Cg] * E + [0]
+        take = by_e.new_zeros(sum(counts))
+    else:
+        counts = torch.zeros(E + 1, dtype=torch.long, device=xt.device)
+        counts = counts.index_add_(0, pair_e, torch.ones_like(pair_e)).tolist()  # host sync
+        take = by_e[:T * K - counts[E]]
+    n = len(take)
+    # each kept pair's row of x, gathered from the (T * K, d) copy of xt
+    # repeated over K, whose rows are the pairs: no index repeats, so the
+    # gather's backward writes each row once and expand's backward sums a
+    # token's K rows in a fixed order (deterministic on the card, where an
+    # accumulating scatter over repeated indices need not be)
+    rows = xt[:, None].expand(T, K, d).reshape(T * K, d)[take]
+    # each expert's rows as one split, whose backward is one concatenation
+    # (a slice's backward would write a zero-padded (n, d) gradient an
+    # expert and add them up)
+    outs = []
+    for wg, wu, wd, xe in zip(p["w_gate"].unbind(0), p["w_up"].unbind(0),
+                              p["w_down"].unbind(0), rows.split(counts[:E])):
+        if len(xe):
+            outs.append((F.silu(xe @ wg) * (xe @ wu)) @ wd)
+    outs.append(xt.new_zeros((1, d)))                  # what a dropped pair reads
+    y = torch.cat(outs)                                # (n + 1, d)
+    # each pair's row in y: its place in the sorted order, or the zero row.
+    # Only the zero row repeats (once for each dropped pair), and its
+    # gradient is thrown away: it is a constant, not an expert's output.
+    slot = torch.empty_like(by_e)
+    slot[by_e] = torch.arange(T * K, device=xt.device)
+    routed = torch.bmm(gate.to(xt.dtype)[:, None, :], y[slot.clamp_(max=n)].view(T, K, d))
+    out = routed.view(T, d)
+    if cfg.num_shared_experts:
+        out = out + mlp_apply(p["shared"], xt)
+    return out
+
+
+def _moe_sharded(p, xt, cfg, Tg: int, Cg: int, segment: int, layer: int):
+    """``moe_apply`` on DTensor tokens ``xt`` (T, d): (out, mean probability,
+    mean choice), DTensors.  The routing and the experts run on each rank's
+    own tokens, the way a rank would run them, and DTensor sees only their
+    boundaries; its op-by-op rules would gather the whole batch at the sort.
+
+    Each mesh axis takes one role.  "batch": the tokens are sharded on it and
+    each shard holds whole capacity groups (whole segments of a coded chunk),
+    so a rank's routing is the batch's; the expert weights are gathered on it
+    (FSDP).  "tp": the expert weights (and the shared experts') are sharded
+    on their hidden dimension f on it; the routing is repeated on each of its
+    ranks, each runs its slice of every expert, and the output is a pending
+    sum.  Any other axis holds everything whole."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = xt.device_mesh
+    T = xt.shape[0]
+    unit = segment if segment < T else Tg
+    sharded = [(p["w_gate"], 2), (p["w_up"], 2), (p["w_down"], 1)]
+    if cfg.num_shared_experts:
+        sharded += [(p["shared"]["w_gate"], 1), (p["shared"]["w_up"], 1),
+                    (p["shared"]["w_down"], 0)]
+    roles, parts = [], 1
+    for i, placed in enumerate(xt.placements):
+        n = mesh.size(i)
+        if placed == Shard(0) and T % (parts * n) == 0 and T // (parts * n) % unit == 0:
+            roles.append("batch")
+            parts *= n
+        elif all(w.placements[i] == Shard(f) for w, f in sharded):
+            roles.append("tp")
+        else:
+            roles.append(None)
+
+    def lay(batch=Replicate(), tp=Replicate()):
+        return tuple({"batch": batch, "tp": tp, None: Replicate()}[r] for r in roles)
+
+    x = xt.redistribute(mesh, lay(batch=Shard(0)))
+    router = p["router"].redistribute(mesh, lay()).to_local(grad_placements=lay(batch=Partial()))
+    gate, idx, kept, me, ce = _moe_route(router, x.to_local(), cfg, Tg, Cg, layer)
+    # the expert part's gradients: a tp rank's slice of f gives a part of the
+    # tokens' and gates' gradients, a batch rank its tokens' part of the weights'
+    partial = lay(batch=Shard(0), tp=Partial())
+    gate = DTensor.from_local(gate, mesh, lay(batch=Shard(0))).to_local(grad_placements=partial)
+
+    def local(w, f):
+        return w.redistribute(mesh, lay(tp=Shard(f))).to_local(
+            grad_placements=lay(batch=Partial(), tp=Shard(f)))
+
+    experts = {"w_gate": local(p["w_gate"], 2), "w_up": local(p["w_up"], 2),
+               "w_down": local(p["w_down"], 1)}
+    if cfg.num_shared_experts:
+        experts["shared"] = {k: local(p["shared"][k], f)
+                             for k, f in (("w_gate", 1), ("w_up", 1), ("w_down", 0))}
+    out = _moe_experts(experts, x.to_local(grad_placements=partial), gate, idx, kept, cfg,
+                       Tg, Cg)
+    out = DTensor.from_local(out, mesh, lay(batch=Shard(0), tp=Partial()))
+    # the batch's means are the sum over the batch ranks of their own means / ranks
+    # (made whole: a pending sum beside the loss's pending mean cannot be
+    # added to it in some torch versions)
+    means = [DTensor.from_local(v / parts, mesh, lay(batch=Partial())).redistribute(mesh, lay())
+             for v in (me, ce)]
+    return out, *means

@@ -21,10 +21,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dtensor import is_dtensor, local_shards
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
-from .layers import _span, dense_init, rmsnorm_apply, rmsnorm_init
+from .layers import _span, dense_init, init_device, rmsnorm_apply, rmsnorm_init
 
 #: parameters kept in f32 whatever the model dtype (``src/repro/models/ssm.py:36-38``)
 F32_PARAMS = ("A_log", "D", "dt_bias")
@@ -34,7 +35,7 @@ CONV_K = 4
 
 def ssm_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     d, di, st, nh = cfg.d_model, cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
-    dev = gen.device
+    dev = init_device(gen)
     conv_dim = di + 2 * st
     return {
         # in_proj emits [z (di), x (di), B (st), C (st), dt (nh)]
@@ -50,7 +51,11 @@ def ssm_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
 
 
 def _causal_conv(x, w, b):
-    """x: (b, s, c); w: (k, c) depthwise; left-padded causal conv."""
+    """x: (b, s, c); w: (k, c) depthwise; left-padded causal conv.  On DTensors
+    each rank convolves its own sequences (``local_shards``): DTensor's rule
+    for the pad fails in some torch versions."""
+    if is_dtensor(x):
+        return local_shards(_causal_conv, [x], (0,), [w, b])
     k, s = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, k - 1, 0))
     out = xp[:, 0:s] * w[0]
@@ -124,8 +129,16 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, plain: bool = False,
     The chunk states and the recurrence over the chunks run first; the
     chunk's output (intra-chunk block, inter-chunk term, D skip, cast) is then
     one ``ssd_chunk_scan`` call, the fused kernel on the card, or with
-    ``plain`` its plain version (``kernels/ssd_scan/ref.py``).
+    ``plain`` its plain version (``kernels/ssd_scan/ref.py``).  On DTensors
+    each rank scans its own sequences (``local_shards``): the scan is
+    per-sequence, and DTensor has no rule for some of its ops' backward
+    (``flip``, in cumsum's) in some torch versions.
     """
+    if is_dtensor(x) and not return_state:
+        return local_shards(
+            lambda x, dt, B, C, A, D: ssd_chunked(x, dt, A, B, C, D, chunk=chunk, plain=plain,
+                                                  out_dtype=out_dtype),
+            [x, dt, B, C], (0,), [A, D])
     s = x.shape[1]
     xc, dtc, cum, Bc, Cc, h_prev, h = _chunk_inputs(x, dt, A, B, C, chunk)
     # y[t] = y_intra[t] + C_t . exp(cum_t) h_prev + D x_t, with

@@ -44,7 +44,10 @@ from __future__ import annotations
 import contextlib
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
+
+from repro_torch.dtensor import is_dtensor, local_shards, placements, vocab_nll
 
 from . import ssm as ssm_mod
 from .config import ModelConfig
@@ -52,6 +55,7 @@ from .layers import (
     attention_apply,
     attention_decode,
     attention_init,
+    init_device,
     mlp_apply,
     mlp_init,
     moe_apply,
@@ -99,14 +103,16 @@ def _shared_every(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def init_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+def init_params(cfg: ModelConfig, gen: torch.Generator | None) -> dict:
     """Random parameters drawn from ``gen``, on ``gen.device``, in ``cfg.dtype``.
 
     Draws are made in f32 and then cast, so one seed gives the same weights,
-    rounded, in every dtype.
+    rounded, in every dtype.  ``gen=None`` gives meta tensors of the same
+    shapes and dtypes and no storage (the JAX package's
+    ``jax.eval_shape(init_params)``), at any size.
     """
     _check_family(cfg)
-    dtype, device = torch_dtype(cfg), gen.device
+    dtype, device = torch_dtype(cfg), init_device(gen)
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=gen, device=device) * 0.02
     params: dict = {
         "embed": embed.to(dtype),
@@ -136,9 +142,9 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
     """One attention block: a dense layer or the hybrid's shared block, with a
     SwiGLU MLP, or a moe layer, with ``moe`` in its place."""
     p = {
-        "norm1": rmsnorm_init(cfg.d_model, dtype, gen.device),
+        "norm1": rmsnorm_init(cfg.d_model, dtype, init_device(gen)),
         "attn": attention_init(gen, cfg, dtype),
-        "norm2": rmsnorm_init(cfg.d_model, dtype, gen.device),
+        "norm2": rmsnorm_init(cfg.d_model, dtype, init_device(gen)),
     }
     if cfg.family == "moe":
         p["moe"] = moe_init(gen, cfg, dtype)
@@ -152,6 +158,15 @@ def _attn_block_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _embed(embed, tokens):
+    """embed[tokens]; on DTensors each rank looks its own tokens up in the
+    gathered table (``local_shards``): DTensor's rule for the lookup's
+    backward (an accumulating ``index_put``) fails in some torch versions."""
+    if is_dtensor(tokens):
+        return local_shards(lambda t, e: e[t], [tokens], (0,), [embed])
+    return embed[tokens]
+
+
 def embed_inputs(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """The (b, s, d) input sequence of the batch dict.
 
@@ -162,7 +177,7 @@ def embed_inputs(params, cfg: ModelConfig, batch) -> torch.Tensor:
     _check_family(cfg)
     if cfg.frontend == "audio_stub":
         return batch["frames"].to(torch_dtype(cfg))
-    tok_embeds = params["embed"][batch["tokens"]]
+    tok_embeds = _embed(params["embed"], batch["tokens"])
     if cfg.frontend == "vision_stub":
         prefix = batch["prefix_embeds"].to(tok_embeds.dtype)
         return torch.cat([prefix, tok_embeds], dim=1)
@@ -182,24 +197,53 @@ def _ffn(lp, cfg, x, *, layer=0, segment=None):
     return mlp_apply(lp["mlp"], x), None
 
 
+def _act_constraint(x, cfg: ModelConfig):
+    """The JAX package's FSDP / sequence-parallel pin: hidden states (b, s, ...)
+    sharded on the batch over ``cfg.act_batch_axes`` and on the sequence over
+    ``cfg.act_seq_axis``, every other dimension whole, so that the (sharded)
+    parameters are gathered per layer rather than the activations summed.  A
+    DTensor is redistributed to that layout; a plain tensor, or a config that
+    sets neither field, passes through."""
+    if not (cfg.act_batch_axes or cfg.act_seq_axis) or not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    spec = (tuple(cfg.act_batch_axes) or None, cfg.act_seq_axis or None)
+    return x.redistribute(mesh, placements(mesh, spec))
+
+
+def _whole_seq(x, cfg: ModelConfig):
+    """Under sequence parallelism (``cfg.act_seq_axis``), a DTensor's sequence
+    gathered before the products that take it (Megatron's all-gather before
+    the column-parallel ones): some torch versions cannot fold a sequence
+    sharded beside a sharded batch into a product's rows.  Otherwise x."""
+    if not cfg.act_seq_axis or not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, placements(x.device_mesh,
+                                                    (tuple(cfg.act_batch_axes) or None,)))
+
+
 def _layer(lp, cfg, x, *, plain, layer=0, segment=None):
     """One attention block: (x, aux, k, v)."""
-    h, (k, v) = attention_apply(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
-                                cfg, plain=plain)
-    x = x + h
-    h, aux = _ffn(lp, cfg, rmsnorm_apply(lp["norm2"], x, plain=plain), layer=layer,
-                  segment=segment)
-    return x + h, aux, k, v
+    x = _act_constraint(x, cfg)
+    h, (k, v) = attention_apply(
+        lp["attn"], _whole_seq(rmsnorm_apply(lp["norm1"], x, plain=plain), cfg), cfg,
+        plain=plain)
+    x = x + _act_constraint(h, cfg)
+    h, aux = _ffn(lp, cfg, _whole_seq(rmsnorm_apply(lp["norm2"], x, plain=plain), cfg),
+                  layer=layer, segment=segment)
+    return x + _act_constraint(h, cfg), aux, k, v
 
 
 def _ssm_layer(lp, cfg, x, *, plain, return_cache=False):
     """x + ssm(norm1(x)); with ``return_cache`` also (state, conv_buf)."""
-    out = ssm_mod.ssm_apply(lp["ssm"], rmsnorm_apply(lp["norm1"], x, plain=plain), cfg,
+    x = _act_constraint(x, cfg)
+    out = ssm_mod.ssm_apply(lp["ssm"], _whole_seq(rmsnorm_apply(lp["norm1"], x, plain=plain),
+                                                  cfg), cfg,
                             return_cache=return_cache, plain=plain)
     if return_cache:
         y, state, conv = out
-        return x + y, state, conv
-    return x + out
+        return x + _act_constraint(y, cfg), state, conv
+    return x + _act_constraint(out, cfg)
 
 
 # the products whose outputs the "dots" policy keeps (``x @ w`` and the plain
@@ -282,7 +326,7 @@ def forward(params, cfg: ModelConfig, batch, *, plain: bool = False,
     Other families do not read it."""
     x, aux = _stack_forward(params, cfg, embed_inputs(params, cfg, batch), plain=plain,
                             segment=segment)
-    x = rmsnorm_apply(params["final_norm"], x, plain=plain)
+    x = _whole_seq(rmsnorm_apply(params["final_norm"], x, plain=plain), cfg)
     return x @ _head(params, cfg), torch.zeros((), device=x.device) if aux is None else aux
 
 
@@ -298,8 +342,12 @@ def token_nll(params, cfg: ModelConfig, batch, *, plain: bool = False,
         logits, labels = logits[:, :-1], labels[:, 1:]
     if cfg.frontend == "vision_stub":
         logits = logits[:, -labels.shape[1]:]
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    return -logp.gather(-1, labels[..., None].long())[..., 0], aux
+    logits, target = logits.float().flatten(0, -2), labels.flatten().long()
+    if is_dtensor(logits):
+        nll = vocab_nll(logits, target)
+    else:   # -logp[label], as nll_loss takes it
+        nll = F.nll_loss(torch.log_softmax(logits, dim=-1), target, reduction="none")
+    return nll.view(labels.shape), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,
@@ -390,7 +438,7 @@ def decode_step(params, cfg: ModelConfig, cache, token, pos: int, *, plain: bool
     _check_family(cfg)
     if not cfg.has_decode:
         raise ValueError(f"{cfg.name} is encoder-only: no decode step")
-    x = params["embed"][token]
+    x = _embed(params["embed"], token)
     kv = ("k", "v") if cfg.family in _ATTN_FAMILIES else ("shared_k", "shared_v")
     if kv[0] in cache and not 0 <= pos < cache[kv[0]].shape[3]:
         raise ValueError(f"pos {pos} outside the cache's {cache[kv[0]].shape[3]} positions")

@@ -34,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.dtensor import is_dtensor, placements
 from repro_torch.models import decode_step, init_params, loss_fn, token_nll
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init, adamw_update
@@ -45,6 +46,7 @@ def value_and_grad(fn, params):
 
     The parameters are differentiated through detached aliases, so the
     caller's tensors are neither copied nor marked as requiring grad.  A
+    DTensor value comes back replicated.  A
     leaf that ``fn`` does not use gets a zero gradient, as under ``jax.grad``
     (hubert's token embedding: its batch is frames).
     """
@@ -52,6 +54,11 @@ def value_and_grad(fn, params):
     with torch.enable_grad():
         xs = [p.detach().requires_grad_(True) for p in leaves]
         value = fn(tree_unflatten(spec, xs))
+        if is_dtensor(value):
+            # a DTensor loss is made whole on every rank first, so that its
+            # gradient starts whole: a pending mean's would stay a pending
+            # mean, which some torch versions cannot add to a pending sum
+            value = value.redistribute(value.device_mesh, placements(value.device_mesh, ()))
         grads = torch.autograd.grad(value, xs, materialize_grads=True)
     return value.detach(), tree_unflatten(spec, list(grads))
 

@@ -32,6 +32,19 @@ from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm as rn_kernel
 from repro_torch.kernels.rmsnorm.rmsnorm import rmsnorm_bwd as rn_bwd
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as ssd_kernel
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device no op implements (an XPU), where
+    the ops must refuse it: the meta device, which stood in for one, now takes
+    the plain versions (the dry-run's shapes)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def elsewhere(*shape, requires_grad=False):
+    return torch.Tensor._make_subclass(_Elsewhere, torch.empty(*shape), requires_grad)
+
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 RMSNORM_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 ATTN_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
@@ -380,7 +393,9 @@ def test_backward_and_combine_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fa_bwd(q, q, q, q, lse, q)
     with pytest.raises(ValueError, match="no implementation"):
-        gc_ops.coded_combine(torch.empty(3, 64, device="meta"), [1.0, 2.0, 3.0])
+        gc_ops.coded_combine(elsewhere(3, 64), [1.0, 2.0, 3.0])
+    got = gc_ops.coded_combine(torch.empty(3, 64, device="meta"), [1.0, 2.0, 3.0])
+    assert got.device.type == "meta" and got.shape == (64,)
     assert (gc_kernel.launches, rn_bwd.launches, fa_bwd.launches) == before
 
 
@@ -410,12 +425,17 @@ def test_aligned16_reads_the_pointer_and_the_strides():
 
 
 def test_ops_refuse_devices_without_an_implementation():
+    """A device with neither a plain version nor a kernel is refused; the meta
+    device takes the plain versions (shapes only, the dry-run's)."""
+    with pytest.raises(ValueError, match="no implementation"):
+        rn_ops.rmsnorm(elsewhere(4, 64), elsewhere(64))
+    with pytest.raises(ValueError, match="no implementation"):
+        fa_ops.attention(*(elsewhere(1, 2, 8, 64) for _ in range(3)))
     x = torch.empty(4, 64, device="meta")
-    with pytest.raises(ValueError, match="no implementation"):
-        rn_ops.rmsnorm(x, torch.empty(64, device="meta"))
+    y = rn_ops.rmsnorm(x, torch.empty(64, device="meta"))
+    assert y.device.type == "meta" and y.shape == x.shape
     q = torch.empty(1, 2, 8, 64, device="meta")
-    with pytest.raises(ValueError, match="no implementation"):
-        fa_ops.attention(q, q, q)
+    assert fa_ops.attention(q, q[:, :1], q[:, :1]).shape == q.shape
 
 
 # -- on the card: kernels vs plain versions --------------------------------------

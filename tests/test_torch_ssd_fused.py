@@ -29,7 +29,7 @@ from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_chunk_scan as scan_kernel
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk as intra_kernel
 from repro_torch.models import ssm as tssm
-from test_torch_ssm import KERNEL_CASES, _ssd_inputs
+from test_torch_ssm import KERNEL_CASES, _ssd_inputs, elsewhere
 
 ROOT = Path(__file__).resolve().parents[1]
 # tests/test_ssd_kernel.py's tolerances for the intra-chunk block
@@ -142,16 +142,17 @@ def test_chunk_scan_op_refuses_a_gradient_off_the_cpu(monkeypatch):
     """The fused entry is differentiable off the CPU: a call that needs a
     gradient goes into ``_SSDChunkScanFn`` (its backward is the kernel of
     ``csrc/ssd_scan_bwd.cu``), one that does not straight to the forward
-    kernel.  A device with no kernel (meta) is still refused either way."""
-    x = torch.empty(1, 2, 16, 2, 8, device="meta", requires_grad=True)
-    dt = torch.empty(1, 2, 16, 2, device="meta")
-    Bm = torch.empty(1, 2, 16, 4, device="meta")
-    h = torch.empty(1, 2, 2, 8, 4, device="meta")
-    D = torch.empty(2, device="meta")
+    kernel.  A device with no implementation is still refused either way; the
+    meta device takes the plain version."""
+    x = elsewhere(1, 2, 16, 2, 8, requires_grad=True)
+    dt, Bm = elsewhere(1, 2, 16, 2), elsewhere(1, 2, 16, 4)
+    h, D = elsewhere(1, 2, 2, 8, 4), elsewhere(2)
     for args in ((x, dt, dt, Bm, Bm, h, D, 32), (x.detach(), dt, dt, Bm, Bm, h, D, 32)):
         with pytest.raises(ValueError, match="no implementation"):
             ssd_ops.ssd_chunk_scan(*args)
-    # past the device check, the meta tensors show where each call goes
+    meta = [torch.empty(t.shape, device="meta") for t in (x, dt, dt, Bm, Bm, h, D)]
+    assert ssd_ops.ssd_chunk_scan(*meta, 32).shape == (1, 32, 2, 8)
+    # past the device check, these tensors show where each call goes
     routes = []
     monkeypatch.setattr(ssd_ops, "_check_device", lambda what, device: None)
     monkeypatch.setattr(ssd_ops, "_scan_kernel", lambda *a: routes.append(("kernel", a[7:])))

@@ -31,6 +31,19 @@ from repro_torch.launch.serve import serve
 from repro_torch.models import ssm as tssm
 from repro_torch.models.transformer import generate
 
+class _Elsewhere(torch.Tensor):
+    """A CPU tensor that reports a device no op implements (an XPU), where
+    the ops must refuse it: the meta device, which stood in for one, now takes
+    the plain versions (the dry-run's shapes)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def elsewhere(*shape, requires_grad=False):
+    return torch.Tensor._make_subclass(_Elsewhere, torch.empty(*shape), requires_grad)
+
 ARCH = "mamba2-1.3b"
 # f32 on the CPU: the two packages differ only in the order of their sums
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -376,11 +389,11 @@ def test_serve_on_cpu_matches_generate():
 def test_ssd_op_refuses_a_gradient_off_the_cpu():
     """The intra-chunk entry is forward only, as the JAX package's Pallas
     kernel is: a call off the CPU that needs a gradient raises and names the
-    fused entry as the differentiable one (here on the meta device, which the
-    op otherwise refuses too)."""
-    x = torch.empty(1, 2, 16, 2, 8, device="meta", requires_grad=True)
-    dt = torch.empty(1, 2, 16, 2, device="meta")
-    Bm = torch.empty(1, 2, 16, 4, device="meta")
+    fused entry as the differentiable one (here on a device with no
+    implementation, which the op otherwise refuses too).  The meta device
+    takes the plain version."""
+    x = elsewhere(1, 2, 16, 2, 8, requires_grad=True)
+    dt, Bm = elsewhere(1, 2, 16, 2), elsewhere(1, 2, 16, 4)
     with pytest.raises(NotImplementedError, match="differentiable entry is ssd_chunk_scan"):
         ssd_ops.ssd_intra_chunk(x, dt, dt, Bm, Bm)
     with pytest.raises(ValueError, match="no implementation"):
@@ -388,6 +401,8 @@ def test_ssd_op_refuses_a_gradient_off_the_cpu():
     with torch.no_grad():
         with pytest.raises(ValueError, match="no implementation"):
             ssd_ops.ssd_intra_chunk(x, dt, dt, Bm, Bm)
+    meta = [torch.empty(t.shape, device="meta") for t in (x, dt, dt, Bm, Bm)]
+    assert ssd_ops.ssd_intra_chunk(*meta).shape == x.shape
 
 
 def test_other_families_name_their_roadmap_item():
