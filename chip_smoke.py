@@ -185,8 +185,19 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       CPU run calls their plain versions, all on the wide
                       path.  Wall per scheme, host syncs per round, a profiled
                       run's busy time per round;
- 14. select        -- App.-J ``select_parameters`` on the card for m-sgc and gc
-                      at n 256 (30-round probe) equals ``select_parameters_legacy``;
+ 14. grid          -- grid fusion: m-sgc's whole App.-J grid (``default_grid``
+                      at n 256, 132 candidates in 4 shape buckets) over the
+                      same 64 traces x 44 rounds, both wait-outs: fused on the
+                      card equals ``fuse=False`` on the card bit for bit and
+                      the fused CPU run under the device contract; gate-window
+                      launches = the CPU run's plain calls, all wide.  Both
+                      walls, round loops, host syncs per bucket-round, and a
+                      profiled fused run's busy time per bucket-round;
+     select        -- App.-J ``select_parameters`` on the card for m-sgc and gc
+                      at n 256 (30-round probe), grid-fused and with
+                      ``REPRO_GRID_FUSE=0`` (walls and round loops of both),
+                      the same candidate, which equals
+                      ``select_parameters_legacy``'s;
  15. adaptive      -- ``run_adaptive`` at Fig. 18's configuration (n 64, 60 jobs,
                       a 20-round uncoded probe, 4 models) beats never switching;
  16. scenarios     -- ``launch.scenarios.scenario_sweep`` (Sec. 6) at n 256 over
@@ -255,7 +266,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       head dim 256 at [slice-vlm-train]'s GC shape (64, 8,
                       320, 256), kv (64, 1, 320, 256), and at one 64-key
                       tile (64, 8, 64, 256), beside autograd of its plain
-                      version and of SDPA.
+                      version and of SDPA; the bf16 attention forward and
+                      backward at head dim 64 at [launch]'s step shape (8,
+                      14, 4096, 64), kv (8, 2, 4096, 64), 64 key tiles,
+                      beside SDPA and its autograd (printed, not in the
+                      kernels line).
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -267,6 +282,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -328,6 +344,8 @@ ATTN_MIXTRAL_SERVED = (1, 48, 8, MIXTRAL["prompt"], MIXTRAL["prompt"], 128, True
 ATTN_DH256_SERVED = (BATCH, 8, 1, PROMPT_LEN, PROMPT_LEN, 256, True, 0, None)
 ATTN_DH256_CASES = list(dict.fromkeys(c[:5] + (256,) + c[6:] for c in ATTN_BF16_EDGES))
 ATTN_AUDIO_SERVED = (BATCH, 16, 16, PROMPT_LEN, PROMPT_LEN, 80, False, 0, None)
+# [launch]'s step: qwen2-0.5b's GQA 14/2 at head dim 64 over 8 x 4,096 tokens
+ATTN_LAUNCH = (8, 14, 2, 4096, 4096, 64, True, 0, None)
 GC_TOL = {"float32": 1e-5, "bfloat16": 3e-2}         # tests/test_kernels.py
 SSD_TOL = {"float32": 2e-4, "bfloat16": 3e-2}        # tests/test_ssd_kernel.py
 # the SSD backward against the plain backward and autograd: rtol, and atol times
@@ -891,6 +909,10 @@ def main() -> None:
     # Table-1 grid, App.-J selection and the adaptive trainer
     errs.update(_gate_window_check(dev))
     launches.update(_sim(dev))
+    # 14b. grid: m-sgc's whole App.-J grid grid-fused, against one loop a spec
+    t_grid = time.perf_counter()
+    grid_launches = _grid(dev)
+    say("grid", f"phase wall {time.perf_counter() - t_grid:.1f} s; launches {grid_launches}")
     _select(dev)
     _adaptive(dev)
 
@@ -953,6 +975,9 @@ def main() -> None:
     row["max_abs_err"] = errs["flash_attention_bwd dh256"]
     rows.append(row)
     _attention_bwd_timing(ATTN_DH256_TILE, heads_view, ptxas)  # printed: one 64-key tile
+    # printed: the dh-64 forward and backward at [launch]'s step shape, 64 key tiles
+    _attention_served_timing(ATTN_LAUNCH, heads_view, ptxas, iters=10)
+    _attention_bwd_timing(ATTN_LAUNCH, heads_view, ptxas, iters=10)
     rows += _training_timings(dev, cfg, randn, ptxas)
     rows += _gate_window_timings(dev)
     rows += _ssd_timing(dev)
@@ -1928,7 +1953,7 @@ def _attention_dh80_timings(heads_view, ptxas) -> list:
     return rows
 
 
-def _attention_bwd_timing(case, heads_view, ptxas, qkv_do=None) -> dict:
+def _attention_bwd_timing(case, heads_view, ptxas, qkv_do=None, iters=50) -> dict:
     """The bf16 attention backward at ``case`` (b, hq, hkv, s, s, dh, causal,
     ...; q, k, v and dO strided as the model passes them, or ``qkv_do``)
     beside autograd of its plain version and of SDPA, the device time of
@@ -1965,7 +1990,7 @@ def _attention_bwd_timing(case, heads_view, ptxas, qkv_do=None) -> dict:
         lambda: flash_attention_bwd(q, k, v, out, lse, do, causal=causal),
         lambda: torch.autograd.grad(y_plain, (qr, kr, vr), do, retain_graph=True),
         lambda: torch.autograd.grad(y_lib, (qr, kr, vr), do, retain_graph=True),
-        n_bytes, 10 * dh * pairs, "bf16_tensor", iters=50)
+        n_bytes, 10 * dh * pairs, "bf16_tensor", iters=iters)
     _say_attention(row, f"backward bf16 at head dim {dh}, kv {tuple(k.shape)}, causal {causal}",
                    ptxas, f"attn_bwd_dq_bf16_kernel<{dh}>", f"attn_bwd_dkdv_bf16_kernel<{dh}>")
     say("timings", f"backward bf16 at head dim {dh} {tuple(q.shape)}, device ms a call by launch: "
@@ -1977,7 +2002,7 @@ def _attention_bwd_timing(case, heads_view, ptxas, qkv_do=None) -> dict:
     return row
 
 
-def _attention_served_timing(served, heads_view, ptxas) -> dict:
+def _attention_served_timing(served, heads_view, ptxas, iters=50) -> dict:
     """The bf16 attention forward at a served shape (``ATTN_DH128_SERVED``,
     ``ATTN_DH256_SERVED``, ``ATTN_AUDIO_SERVED``: q, k, v strided, causal or
     not as served) beside its plain version, SDPA and the bound (q, k, v and
@@ -2000,7 +2025,7 @@ def _attention_served_timing(served, heads_view, ptxas) -> dict:
         lambda: fa_ref.attention(q, k, v, causal=causal),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True),
         sum(t.numel() * t.element_size() for t in (q, k, v, q)), 4 * dh * pairs,
-        "bf16_tensor", iters=50)
+        "bf16_tensor", iters=iters)
     _say_attention(row, f"forward bf16 at head dim {dh}, kv {tuple(k.shape)}, causal {causal}",
                    ptxas, f"attn_fwd_bf16_kernel<{dh}>")
     torch.cuda.empty_cache()
@@ -2331,14 +2356,13 @@ def _sim(dev) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.core import GilbertElliotSource, make_scheme, simulate, simulate_batch
+    from repro_torch.core import make_scheme, simulate, simulate_batch
     from repro_torch.core.kernel import GateKernel
     from repro_torch.kernels.gate_window import gate_window as gwk
     from repro_torch.kernels.gate_window import ref as gwr
 
     n = SIM["n"]
-    traces = np.stack([GilbertElliotSource(n=n, seed=SIM["seed0"] + k, **SIM_GE)
-                       .sample_delays(SIM["rounds"]) for k in range(SIM["traces"])])
+    traces = _sim_traces()
     simulate_batch([("m-sgc", SIM_PARAMS["m-sgc"])], traces[:2, :8], alpha=SIM["alpha"],
                    device=dev)  # warm-up
     totals = {"window_stats": 0, "buffer_stats": 0}
@@ -2411,29 +2435,167 @@ def _sim(dev) -> dict:
     return totals
 
 
-def _select(dev) -> None:
-    """App.-J selection on the card against the legacy per-candidate loop."""
+def _sim_traces():
+    """``[sim]``'s 64 Gilbert-Elliott traces of 44 rounds at n 256."""
     import numpy as np
 
-    from repro_torch.core import GilbertElliotSource, select_parameters, select_parameters_legacy
+    from repro_torch.core import GilbertElliotSource
+
+    return np.stack([GilbertElliotSource(n=SIM["n"], seed=SIM["seed0"] + k, **SIM_GE)
+                     .sample_delays(SIM["rounds"]) for k in range(SIM["traces"])])
+
+
+def _grid(dev) -> dict:
+    """m-sgc's App.-J grid (``default_grid`` at n 256: 132 candidates) over
+    ``[sim]``'s 64 traces x 44 rounds, both wait-outs, grid-fused: on the card
+    against ``fuse=False`` on the card (bit for bit) and against the fused run
+    on the CPU (the simulator's device contract); gate-window launches = the
+    CPU run's plain calls, all on the wide path.  Prints both walls, the round
+    loops, the host syncs per bucket-round and a profiled fused run's device
+    busy time per round; returns the gate-window launches of the fused runs."""
+    import torch
+
+    from repro_torch.core import batch, default_grid, grid_plan, simulate_batch
+    from repro_torch.core.kernel import GateKernel
+    from repro_torch.kernels.gate_window import gate_window as gwk
+    from repro_torch.kernels.gate_window import ref as gwr
+
+    n, rounds, alpha = SIM["n"], SIM["rounds"], SIM["alpha"]
+    traces = _sim_traces()
+    specs = [("m-sgc", p) for p in default_grid("m-sgc", n)]
+    plan = grid_plan(specs, traces)
+    sizes = [len(b["specs"]) for b in plan["buckets"]]
+    say("grid", f"m-sgc default_grid at n {n}: {len(specs)} candidates in {len(sizes)} buckets "
+                f"{sizes} (J {[b['J'] for b in plan['buckets']]}, fused "
+                f"{plan['buckets'][0]['fused']}), fallback {plan['fallback']}, infeasible "
+                f"{plan['infeasible']}; {SIM['traces']} traces x {rounds} rounds")
+    if plan["fallback"] or len(sizes) != 4:
+        fail(f"grid: plan {plan}")
+
+    def run(device, **kw):
+        loops0, GateKernel.host_syncs = batch._round_loop.calls, 0
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = simulate_batch(specs, traces, alpha=alpha, strict=False, device=device, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, batch._round_loop.calls - loops0, \
+            GateKernel.host_syncs
+
+    totals = {"window_stats": 0, "buffer_stats": 0}
+    walls = {}
+    for waitout in ("selective", "all"):
+        for k in (gwk.window_stats, gwk.buffer_stats):
+            k.launches = k.wide_launches = 0
+        fused, wall, loops, syncs = run(dev, waitout=waitout)
+        walls[waitout] = wall
+        launched = (gwk.window_stats.launches, gwk.buffer_stats.launches)
+        if (gwk.window_stats.wide_launches, gwk.buffer_stats.wide_launches) != launched:
+            fail(f"grid {waitout}: of the launches {launched}, {gwk.window_stats.wide_launches} "
+                 f"and {gwk.buffer_stats.wide_launches} took the wide path")
+        gwr.window_stats.calls = gwr.buffer_stats.calls = 0
+        cpu, cpu_wall, cpu_loops, _ = run("cpu", waitout=waitout)
+        plain = (gwr.window_stats.calls, gwr.buffer_stats.calls)
+        if launched != plain:
+            fail(f"grid {waitout}: kernel launches {launched} on the card, plain calls {plain} "
+                 f"on the CPU")
+        perspec, per_wall, per_loops, per_syncs = run(dev, waitout=waitout, fuse=False)
+        if (loops, cpu_loops, per_loops) != (len(sizes), len(sizes), len(specs)):
+            fail(f"grid {waitout}: round loops fused {loops}, CPU {cpu_loops}, per spec "
+                 f"{per_loops}")
+        cells = dead = exact = 0
+        for si in range(len(specs)):
+            for c in range(SIM["traces"]):
+                f, p, w = fused[si, 0, c], perspec[si, 0, c], cpu[si, 0, c]
+                if (f is None) != (p is None) or (f is None) != (w is None):
+                    fail(f"grid {waitout}: {specs[si]} trace {c}: dead in one run only")
+                if f is None:
+                    dead += 1
+                    continue
+                if not _sim_parity(p, f, exact=True):
+                    fail(f"grid {waitout}: {specs[si]} trace {c}: fused differs from "
+                         f"fuse=False on the card")
+                # bits imply the device contract, and are the cheaper check
+                same = _sim_parity(w, f, exact=True)
+                if not (same or _sim_parity(w, f, exact=False)):
+                    fail(f"grid {waitout}: {specs[si]} trace {c}: the card differs from the CPU")
+                cells += 1
+                exact += same
+        totals["window_stats"] += launched[0]
+        totals["buffer_stats"] += launched[1]
+        say("grid", f"{waitout}: fused {wall * 1e3:.3f} ms on the card in {loops} round loops, "
+                    f"{syncs} host syncs ({syncs / (loops * rounds):.3f} per bucket-round); "
+                    f"fuse=False {per_wall * 1e3:.3f} ms in {per_loops} loops, {per_syncs} host "
+                    f"syncs ({per_syncs / (per_loops * rounds):.3f} per spec-round); "
+                    f"{per_wall / wall:.2f}x; CPU fused {cpu_wall * 1e3:.3f} ms; launches "
+                    f"window_stats {launched[0]}, buffer_stats {launched[1]} (= plain calls "
+                    f"on the CPU, all wide); {cells} cells bit for bit = fuse=False and = the "
+                    f"CPU under the device contract (bit for bit on {exact}), {dead} dead in "
+                    f"all three [{nvidia_smi()}]")
+    # where the device time of the fused selective run goes
+    wall_ms = walls["selective"] * 1e3
+    events = _device_events(lambda: run(dev))
+    busy_ms = sum(t for _, t, _ in events) / 1e3
+    bucket_rounds = len(sizes) * rounds
+    _breakdown(f"profile grid m-sgc selective, {bucket_rounds} bucket-rounds", events, wall_ms)
+    say("profile grid m-sgc selective",
+        f"per bucket-round: device busy {busy_ms / bucket_rounds:.4f} ms of "
+        f"{wall_ms / bucket_rounds:.4f} ms wall, {len(events) / bucket_rounds:.1f} device "
+        f"activities ({sum(sizes) // len(sizes) * SIM['traces']} cells a bucket)")
+    return totals
+
+
+def _select(dev) -> None:
+    """App.-J selection on the card, grid-fused and with ``REPRO_GRID_FUSE=0``
+    (one round loop a candidate), against the legacy per-candidate loop."""
+    import numpy as np
+
+    from repro_torch.core import (
+        GilbertElliotSource,
+        batch,
+        select_parameters,
+        select_parameters_legacy,
+    )
 
     n = SIM["n"]
     src = GilbertElliotSource(n=n, seed=100, **SIM_GE)
     probe = src.sample_delays(30)
     for name, grid in SELECT_GRIDS.items():
-        t0 = time.perf_counter()
-        got = select_parameters(name, n, probe, alpha=src.alpha, grid=grid, device=dev)
-        t_dev = time.perf_counter() - t0
+        got = {}
+        prior = os.environ.get("REPRO_GRID_FUSE")
+        for fuse in ("1", "0"):
+            os.environ["REPRO_GRID_FUSE"] = fuse
+            loops0 = batch._round_loop.calls
+            t0 = time.perf_counter()
+            try:
+                got[fuse] = select_parameters(name, n, probe, alpha=src.alpha, grid=grid,
+                                              device=dev)
+            finally:
+                if prior is None:
+                    del os.environ["REPRO_GRID_FUSE"]
+                else:
+                    os.environ["REPRO_GRID_FUSE"] = prior
+            got[fuse + "wall"] = time.perf_counter() - t0
+            got[fuse + "loops"] = batch._round_loop.calls - loops0
         t0 = time.perf_counter()
         want = select_parameters_legacy(name, n, probe, alpha=src.alpha, grid=grid)
         t_legacy = time.perf_counter() - t0
-        say("select", f"{name} over {len(grid)} candidates at n {n}: {got.params} (load "
-                      f"{got.load:.6f}, {got.est_time:.6f} s per job) in {t_dev * 1e3:.3f} ms on "
-                      f"the card; legacy {want.params} ({want.est_time:.6f} s per job) in "
-                      f"{t_legacy * 1e3:.3f} ms")
-        if (got.params, got.load) != (want.params, want.load) or \
-                not np.isclose(got.est_time, want.est_time):
-            fail(f"select {name}: the card chose {got}, the legacy loop {want}")
+        fused, unfused = got["1"], got["0"]
+        say("select", f"{name} over {len(grid)} candidates at n {n}: {fused.params} (load "
+                      f"{fused.load:.6f}, {fused.est_time:.6f} s per job); on the card fused "
+                      f"{got['1wall'] * 1e3:.3f} ms in {got['1loops']} round loops, fuse=False "
+                      f"{got['0wall'] * 1e3:.3f} ms in {got['0loops']}; legacy {want.params} "
+                      f"({want.est_time:.6f} s per job) in {t_legacy * 1e3:.3f} ms")
+        if (fused.params, fused.load, fused.est_time) != \
+                (unfused.params, unfused.load, unfused.est_time):
+            fail(f"select {name}: fused chose {fused}, fuse=False {unfused}")
+        if got["0loops"] != len(grid) or not got["1loops"] < len(grid):
+            fail(f"select {name}: round loops fused {got['1loops']}, fuse=False "
+                 f"{got['0loops']}")
+        if (fused.params, fused.load) != (want.params, want.load) or \
+                not np.isclose(fused.est_time, want.est_time):
+            fail(f"select {name}: the card chose {fused}, the legacy loop {want}")
 
 
 def _adaptive(dev) -> None:
@@ -4116,9 +4278,16 @@ def _device_events(fn, span=None):
     return [(name, t, in_span) for _, name, t, in_span in work]
 
 
-def _device_ms(fn, iters: int) -> float | None:
-    """Device time per call from the profiler (see :func:`_profiled`)."""
-    return _profiled(fn, iters)["ms"]
+def _device_ms(fn, iters: int) -> float:
+    """Device time per call from the profiler (see :func:`_profiled`); where
+    the profiler recorded no device time at all, CUDA-event time per call, with
+    a ``FLAG`` line, as ``_timed`` does."""
+    ms = _profiled(fn, iters)["ms"]
+    if ms is None:
+        ms = _cuda_ms(fn, iters)
+        say("timings", f"FLAG the profiler recorded no device time; CUDA events per call "
+                       f"{ms:.5f} ms")
+    return ms
 
 
 def _profiled(fn, iters: int) -> dict:

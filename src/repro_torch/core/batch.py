@@ -12,23 +12,34 @@ Port of ``src/repro/core/batch.py``:
   are tensors on ``device`` (the card unless the caller asks for the CPU), the
   timing math is float64, and the results come back to the host once, at
   the end.
-* ``simulate_batch`` — runs a (specs x seeds x traces) grid, one lockstep
-  batch per spec.  Schemes whose load-only stepping ignores the coefficient
-  seed (``seed_sensitive = False``, all paper schemes) run the trace axis
-  ONCE and share the results across the seed axis.
+* ``simulate_batch`` — runs a (specs x seeds x traces) grid **grid-fused**
+  by default: specs are bucketed by static shape key (:func:`grid_plan`),
+  each member's scalar parameters (its normalized load, hence its
+  load-adjusted times, and the kernels' ``fused_params``) are stacked along
+  the cells axis, and the bucket runs as ONE lockstep round loop over specs
+  x traces cells, its results coming to the host once.  The JAX package stacks the same scalars
+  under ``vmap``; here a fused threshold is a ``(cells,)`` tensor that the
+  kernels and models broadcast per cell.  ``fuse=False`` (or
+  ``REPRO_GRID_FUSE=0``) runs one lockstep batch per spec; specs the planner
+  cannot stage run that way too, with the same results either way.  Schemes
+  whose load-only stepping ignores the coefficient seed (``seed_sensitive =
+  False``, all paper schemes) run the trace axis ONCE and share the results
+  across the seed axis.
 * ``select_parameters_fast`` — the App.-J probe sweep on ``simulate_batch``;
   ``simulator.select_parameters`` delegates here.
 
-The JAX package's grid fusion (specs of one shape stacked under ``vmap``)
-and its compiled-runner cache are not ported: each spec is its own batch here
-(ROADMAP.md).  Every floating-point expression mirrors the JAX package's numpy
-engine (same ops, same order); the contract is exact on the bool/int
-bookkeeping and allclose on the float times.
+The JAX package's compiled-runner cache has no counterpart: nothing is
+compiled per spec here.  Every floating-point expression mirrors the JAX
+package's numpy engine (same ops, same order); the contract is exact on the
+bool/int bookkeeping and allclose on the float times, and on one device the
+fused and per-spec paths agree bit for bit.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+import warnings
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -47,6 +58,7 @@ __all__ = [
     "simulate_lockstep",
     "simulate_batch",
     "select_parameters_fast",
+    "grid_plan",
 ]
 
 #: where the specs this engine refuses are queued (ROADMAP.md, slice queue)
@@ -218,22 +230,33 @@ def simulate_lockstep(
     if waitout == "selective" and not gate.analytic:
         raise NotImplementedError(
             f"{name}: a selective gate over models without min_drops_batch waits for {_LATER}")
-    state = kernel.init_state(cells)
-    gs = gate.init_state(cells)
     rounds = J + kernel.T
-
     # the whole timing grid in one broadcast pass: (cells, rounds, n) float64
     extra = (kernel.normalized_load - 1.0 / n) * np.asarray(alpha, dtype=np.float64)
     times_all = (torch.as_tensor(traces[:, :rounds], device=dev)
                  + torch.as_tensor(extra, device=dev))
+    return _assemble_results(kernel.name, scheme.normalized_load, J,
+                             *_round_loop(kernel, gate, times_all, mu, waitout), strict)
+
+
+def _round_loop(kernel, gate, times_all, mu, waitout):
+    """The lockstep round loop over ``times_all`` (cells, rounds, n) float64 on
+    the kernel's device: the mu-rule, the wait-out gate and ``kernel.step``
+    for every cell of a round at once.  Returns ``(rt, done_round, dead,
+    waitouts, history)`` on the host, read back once.  ``calls`` counts the
+    loops run, as a kernel wrapper counts its launches."""
+    _round_loop.calls += 1
+    cells, rounds, _ = times_all.shape
     kappa_all = times_all.amin(dim=2)
     cutoff_all = (1.0 + mu) * kappa_all
     tmax_all = times_all.amax(dim=2)
     cand_all = times_all > cutoff_all[..., None]
     any_all = cand_all.any(dim=2)
 
-    rt = torch.zeros((cells, rounds), dtype=torch.float64, device=dev)
-    waitouts = torch.zeros(cells, dtype=torch.int64, device=dev)
+    state = kernel.init_state(cells)
+    gs = gate.init_state(cells)
+    rt = torch.zeros((cells, rounds), dtype=torch.float64, device=times_all.device)
+    waitouts = torch.zeros(cells, dtype=torch.int64, device=times_all.device)
     for t in range(1, rounds + 1):
         k = t - 1
         times, cutoff, tmax = times_all[:, k], cutoff_all[:, k], tmax_all[:, k]
@@ -252,12 +275,11 @@ def simulate_lockstep(
             rt[:, k] = torch.where(wo, tmax, base)
             waitouts += wo
         state = kernel.step(state, t, eff)
+    return (rt.cpu().numpy(), state.done_round.cpu().numpy(), state.dead.cpu().numpy(),
+            waitouts.cpu().numpy(), torch.stack(gs.history).cpu().numpy())
 
-    return _assemble_results(
-        kernel.name, scheme.normalized_load, J, rt.cpu().numpy(),
-        state.done_round.cpu().numpy(), state.dead.cpu().numpy(),
-        waitouts.cpu().numpy(), torch.stack(gs.history).cpu().numpy(), strict,
-    )
+
+_round_loop.calls = 0
 
 
 def _assemble_results(
@@ -348,6 +370,182 @@ def _plan_entries(specs, traces, seeds, J, strict, out):
     return entries, sensitive_map
 
 
+@dataclass
+class _Bucket:
+    """One grid-fusion shape bucket: specs sharing every static shape
+    (scheme structure, n, J, T, wait-out, trace count), differing only in
+    stacked scalars."""
+
+    key: tuple
+    J: int
+    T: int
+    fused_names: tuple
+    scheme0: object                      # representative prototype
+    members: list = field(default_factory=list)  # (entry, scheme, scalars)
+
+
+def _stageable(kernel, gate, waitout: str) -> bool:
+    """Can one lockstep round loop run this spec?  The grid-fusion planner
+    routes the rest to the per-spec path BEFORE bucketing.  False when
+    ``round_loads`` is load-adaptive (the timing grid assumes one constant
+    load), or — in the selective wait-out — when a gate member lacks the
+    analytic ``min_drops_batch``.  ``gate`` is None in the all-or-nothing
+    wait-out, which needs none."""
+    if type(kernel).round_loads is not SchemeKernel.round_loads:
+        return False
+    return gate.analytic if waitout == "selective" else True
+
+
+def _plan_buckets(entries, traces_shape, waitout, strict, out):
+    """Group stageable run entries into shape buckets (the grid-fusion
+    planner).  Entries one round loop cannot express — kernel-less schemes
+    (``has_kernel``), load-adaptive loads, non-analytic gates — come back as
+    leftovers for the per-spec path; entries whose constructor rejects the
+    fitted J mark their rows (strict raises).
+
+    The bucket key is the spec's full static signature: scheme name and the
+    registered factory and kernel objects, the non-fused ("structural")
+    parameters, the fused names, n, J, T, wait-out, the trace count, and —
+    for seed-sensitive schemes — the seed.  The kernel's ``fused_params``
+    values are excluded: they stack per cell instead.  Host-only: kernels and
+    gates are built on the CPU to read their structure.
+    """
+    from .kernel import _KERNELS
+    from .schemes import _SCHEME_FACTORIES
+
+    num_traces, _, n = traces_shape
+    leftover: list[_RunEntry] = []
+    buckets: dict[tuple, _Bucket] = {}
+    for e in entries:
+        if not has_kernel(e.name):
+            leftover.append(e)
+            continue
+        try:
+            scheme = make_scheme(e.name, n, e.J, seed=e.seed, **dict(e.params))
+        except ValueError:
+            if strict:
+                raise
+            out[e.si, e.ki] = [None] * num_traces
+            continue
+        kern = make_kernel(scheme, "cpu")
+        gate = GateKernel(scheme.design_model, scheme.n, "cpu") if waitout == "selective" else None
+        if not _stageable(kern, gate, waitout):
+            leftover.append(e)
+            continue
+        fused_names = tuple(kern.fused_params)
+        sensitive = getattr(scheme, "seed_sensitive", False) or kernel_seed_sensitive(scheme.name)
+        structural = tuple(sorted((str(k), v) for k, v in e.params.items()
+                                  if k not in fused_names))
+        key = ("grid", scheme.name, _SCHEME_FACTORIES.get(scheme.name),
+               _KERNELS.get(scheme.name), structural, fused_names, n, e.J, kern.T, waitout,
+               num_traces, e.seed if sensitive else None)
+        bucket = buckets.get(key)
+        if bucket is None:
+            bucket = buckets[key] = _Bucket(key, e.J, kern.T, fused_names, scheme)
+        bucket.members.append((e, scheme, kern.fused_scalars(scheme)))
+    return leftover, list(buckets.values())
+
+
+def _simulate_batch_fused(entries, traces, out, *, mu, alpha, waitout, strict, dev):
+    """Run the stageable entries bucket by bucket: one round loop over
+    members x traces cells (member-major) and one transfer to the host per
+    bucket.  Returns the entries left for the per-spec path."""
+    leftover, buckets = _plan_buckets(entries, traces.shape, waitout, strict, out)
+    num_traces, _, n = traces.shape
+    alpha = np.asarray(alpha, dtype=np.float64)
+    for b in buckets:
+        rounds = b.J + b.T
+        kernel = make_kernel(b.scheme0, dev)
+        model = kernel.design_model
+        if b.fused_names:
+            fused = {name: torch.as_tensor([sc[name] for _, _, sc in b.members])
+                     .repeat_interleave(num_traces).to(dev) for name in b.fused_names}
+            kernel, model = kernel.bind_fused(fused)
+        gate = GateKernel(model, n, dev)
+        # each member's extra as simulate_lockstep builds it: (load - 1/n) * alpha
+        load = np.array([scheme.normalized_load for _, scheme, _ in b.members])
+        extra = (load - 1.0 / n)[:, None] * alpha
+        times_all = (torch.as_tensor(traces[None, :, :rounds], device=dev)
+                     + torch.as_tensor(extra, device=dev)[:, None, None, :])
+        rt, done, dead, wo, hist = _round_loop(
+            kernel, gate, times_all.reshape(-1, rounds, n), mu, waitout)
+        for i, (e, scheme, _) in enumerate(b.members):
+            c = slice(i * num_traces, (i + 1) * num_traces)
+            out[e.si, e.ki] = _assemble_results(kernel.name, scheme.normalized_load, b.J, rt[c],
+                                                done[c], dead[c], wo[c], hist[:, c], strict)
+    return leftover
+
+
+_FUSE_OFF_VALUES = ("0", "false", "off", "no")
+_FUSE_ON_VALUES = ("", "1", "true", "on", "yes")
+
+
+def _fuse_enabled(fuse: bool | None) -> bool:
+    """Grid fusion defaults ON, on every device; disable per call
+    (``fuse=False``) or per process (``REPRO_GRID_FUSE=0``).  An
+    unrecognized value warns instead of silently acting as fuse-ON: a typo
+    like ``"nope"`` should not flip the engine's strategy without a trace."""
+    if fuse is not None:
+        return fuse
+    raw = os.environ.get("REPRO_GRID_FUSE", "1").strip().lower()
+    if raw in _FUSE_OFF_VALUES:
+        return False
+    if raw not in _FUSE_ON_VALUES:
+        warnings.warn(
+            f"REPRO_GRID_FUSE={raw!r} is not a recognized on/off value "
+            f"(off: {'/'.join(_FUSE_OFF_VALUES)}; on: 1/true/on/yes); "
+            "grid fusion stays ON",
+            stacklevel=2,
+        )
+    return True
+
+
+def grid_plan(
+    specs: list[tuple[str, dict]],
+    traces: np.ndarray,
+    *,
+    seeds: tuple[int, ...] = (0,),
+    J: int | None = None,
+    waitout: str = "selective",
+) -> dict:
+    """Dry-run the grid-fusion planner: how would ``simulate_batch`` bucket
+    these specs?
+
+    Returns ``{"buckets": [...], "fallback": [...], "infeasible": [...]}``:
+    every input spec index lands in exactly one of the three — a bucket dict
+    (scheme name, member spec indices, the shared ``J``/``T``, the fused
+    parameter names, the trace count), the per-spec ``fallback`` list
+    (stageability blockers), or ``infeasible`` (the constructor rejected the
+    spec or grid: ``strict=False`` None rows).  Host-only, no device.
+    """
+    traces = np.asarray(traces, dtype=np.float64)
+    if traces.ndim == 2:
+        traces = traces[None]
+    out = np.empty((len(specs), len(seeds), traces.shape[0]), dtype=object)
+    entries, _ = _plan_entries(specs, traces, seeds, J, False, out)
+    leftover, buckets = _plan_buckets(entries, traces.shape, waitout, False, out)
+    accounted = {e.si for e in leftover}
+    for b in buckets:
+        accounted.update(e.si for e, _, _ in b.members)
+    return {
+        "buckets": [
+            {
+                "scheme": b.scheme0.name,
+                "specs": [e.si for e, _, _ in b.members],
+                "J": b.J,
+                "T": b.T,
+                "fused": list(b.fused_names),
+                "cells": traces.shape[0],
+            }
+            for b in buckets
+        ],
+        # seed-sensitive specs contribute one run entry per seed, but the
+        # plan reports spec indices
+        "fallback": sorted({e.si for e in leftover}),
+        "infeasible": sorted(set(range(len(specs))) - accounted),
+    }
+
+
 def simulate_batch(
     specs: list[tuple[str, dict]],
     traces: np.ndarray,
@@ -359,6 +557,7 @@ def simulate_batch(
     waitout: str = "selective",
     strict: bool = True,
     device="cuda",
+    fuse: bool | None = None,
 ) -> np.ndarray:
     """Run a (specs x seeds x traces) grid on the lockstep engine.
 
@@ -369,9 +568,16 @@ def simulate_batch(
     infeasible cells (bad params / wait-out contract violations) hold
     ``None`` instead of raising.
 
-    Each spec advances all of its traces in lockstep on ``device``
-    (:func:`simulate_lockstep`); ragged grids are fine — every spec gets
-    its own ``J``/``T`` (the App-J fit-the-trace rule) and state shapes.
+    The grid runs **grid-fused** by default: specs are bucketed by static
+    shape key (scheme structure, n, J, T, wait-out, trace count — see
+    :func:`grid_plan`), and each bucket runs as ONE lockstep round loop on
+    ``device`` over its specs' traces, its scalar parameters (the normalized
+    load and the kernels' ``fused_params``) stacked per cell, with one
+    transfer to the host.  ``fuse=False`` (or ``REPRO_GRID_FUSE=0``) runs
+    each spec's traces in lockstep on their own (:func:`simulate_lockstep`),
+    as do the specs the planner cannot stage; the results are the same
+    either way.  Ragged grids are fine — every spec gets its own ``J``/``T``
+    (the App-J fit-the-trace rule) and state shapes.
     ``seeds`` vary only the schemes' gradient-code coefficients, which the
     load-only path never reads: for schemes with ``seed_sensitive = False``
     (all paper schemes) the trace axis runs ONCE and the resulting
@@ -388,6 +594,9 @@ def simulate_batch(
 
     out = np.empty((len(specs), len(seeds), num_traces), dtype=object)
     entries, sensitive_map = _plan_entries(specs, traces, seeds, J, strict, out)
+    if _fuse_enabled(fuse):
+        entries = _simulate_batch_fused(entries, traces, out, mu=mu, alpha=alpha,
+                                        waitout=waitout, strict=strict, dev=dev)
     for e in entries:
         if has_kernel(e.name):
             # contract violations already yield None cells under

@@ -31,13 +31,20 @@ greedy iteration, the same code on the CPU and on the card.
 
 The clustered baselines' kernels, ``DCGCKernel`` and ``SBGCKernel``, check
 decodability per cluster with the same cluster helpers as their design
-models (``straggler._round_robin_clusters``, ``_cluster_counts_ok``).  The
-JAX package's grid-fusion hooks (``fused_params``/``bind_fused``) are left
-out with the grid fusion they serve (ROADMAP.md).
+models (``straggler._round_robin_clusters``, ``_cluster_counts_ok``).
+
+Grid fusion (``core.batch``) runs specs that differ only in a threshold as
+one batch: a kernel's ``fused_params`` names the constructor parameters it
+reads only as thresholds, ``fused_scalars`` reads their values off a spec's
+prototype, and ``bind_fused`` rebinds them onto shallow copies of the kernel
+and its design model as ``(cells,)`` int64 tensors, one value a cell (the
+JAX package binds a vmap lane's traced scalar instead).  Every threshold that
+reads one broadcasts it per cell.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from dataclasses import dataclass, field
 
@@ -45,11 +52,14 @@ import torch
 
 from repro_torch.devices import resolve_device
 
+from .gc import GradientCode
 from .straggler import (
     MixtureModel,
+    PerRoundModel,
     StragglerModel,
     WindowwiseOr,
     _cluster_counts_ok,
+    _per_cell,
     _round_robin_clusters,
 )
 
@@ -69,6 +79,18 @@ __all__ = [
     "has_kernel",
     "kernel_seed_sensitive",
 ]
+
+
+def _rebind_scalars(obj, **fields):
+    """Shallow copy of a kernel, straggler model or gradient code with the
+    given scalar attributes replaced, bypassing ``__init__`` and
+    ``__post_init__``: the values are grid fusion's per-cell tensors, which
+    concrete validation like ``if lam < 0`` cannot branch on.  Works for
+    frozen dataclasses and plain classes alike."""
+    new = copy.copy(obj)
+    for name, value in fields.items():
+        object.__setattr__(new, name, value)
+    return new
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +185,15 @@ class SchemeKernel:
 
     name: str = "base"
     seed_sensitive: bool = False
+    #: Scheme-constructor parameters ``step`` and the design model read ONLY
+    #: as thresholds — never as tensor shapes, ring sizes, loop bounds or
+    #: host branches.  Specs differing solely in these (and in the
+    #: normalized load) share one grid-fused batch (``core.batch``):
+    #: their values are stacked per cell and bound by :meth:`bind_fused`.
+    #: Instances may narrow this per configuration (GC fuses ``s`` only for
+    #: the general code).  Everything not listed is in the planner's bucket
+    #: key.
+    fused_params: tuple = ()
 
     def __init__(self, scheme, device="cuda"):
         self.device = resolve_device(device)
@@ -191,6 +222,19 @@ class SchemeKernel:
         """
         return torch.full((state.cells,), self.normalized_load, dtype=torch.float64,
                           device=self.device)
+
+    def fused_scalars(self, scheme) -> dict:
+        """Read this kernel's :attr:`fused_params` values off a spec's
+        prototype: what the grid-fusion planner stacks per cell."""
+        return {p: getattr(scheme, p) for p in self.fused_params}
+
+    def bind_fused(self, scalars: dict):
+        """Rebind the fused per-cell tensors onto shallow copies of the
+        kernel and its design model; returns ``(kernel, design_model)``.
+        The default covers kernels with no fused parameters.  Overrides
+        keep every derived quantity consistent (SR-SGC re-derives ``s``
+        from ``lam``) and never mutate ``self``."""
+        return self, self.design_model
 
     def _zeros(self, *shape, dtype=torch.bool) -> torch.Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -226,6 +270,19 @@ class GCKernel(SchemeKernel):
     def __init__(self, scheme, device="cuda"):
         super().__init__(scheme, device)
         self.code = scheme.code
+        # the general code's decode test and the per-round design model read
+        # `s` only as a threshold, so GC sweeps fuse; GC-Rep's replication
+        # groups (and its coverage model) make `s` structural instead
+        if isinstance(scheme.design_model, PerRoundModel) and isinstance(
+                scheme.code, GradientCode):
+            self.fused_params = ("s",)
+
+    def bind_fused(self, scalars: dict):
+        if "s" not in scalars:
+            return self, self.design_model
+        s = scalars["s"]
+        kernel = _rebind_scalars(self, code=_rebind_scalars(self.code, s=s))
+        return kernel, _rebind_scalars(self.design_model, s=s)
 
     def init_state(self, cells: int) -> GCState:
         return GCState(**self._base_arrays(cells))
@@ -249,6 +306,27 @@ class SRSGCKernel(SchemeKernel):
         self.code = scheme.code
         self.rep = scheme._groups is not None
         self.num_groups = scheme.code.num_groups if self.rep else 0
+        # with the general code, `lam` (and the derived `s`) enter only as
+        # thresholds — retry budget, decode count, gate limits — so lam
+        # sweeps at fixed (B, W) fuse; the Rep refinement's group layout
+        # pins them structurally
+        if not self.rep and isinstance(scheme.code, GradientCode):
+            self.fused_params = ("lam",)
+
+    def bind_fused(self, scalars: dict):
+        if "lam" not in scalars:
+            return self, self.design_model
+        lam = scalars["lam"]
+        # s = ceil(B * lam / (W - 1 + B)), per cell in integer tensor form
+        d = self.W - 1 + self.B
+        s = (self.B * lam + d - 1) // d
+        kernel = _rebind_scalars(self, s=s, code=_rebind_scalars(self.code, s=s))
+        bursty, per_round = self.design_model.members
+        model = _rebind_scalars(
+            self.design_model,
+            members=(_rebind_scalars(bursty, lam=lam), _rebind_scalars(per_round, s=s)),
+        )
+        return kernel, model
 
     def init_state(self, cells: int) -> SRSGCState:
         R = self.B + 1
@@ -320,6 +398,23 @@ class MSGCKernel(SchemeKernel):
         self.B, self.W, self.lam = scheme.B, scheme.W, scheme.lam
         self.slots = scheme.slots  # == T + 1: ring size
         self.has_d2 = scheme.lam < scheme.n
+        # the kernel never touches the code object — `lam` enters only as
+        # the D2 decode threshold (n - lam) and the design models' count
+        # limits, so lam sweeps at fixed (B, W) fuse; lam == n drops the d2
+        # buffers (a shape change)
+        if self.has_d2:
+            self.fused_params = ("lam",)
+
+    def bind_fused(self, scalars: dict):
+        if "lam" not in scalars:
+            return self, self.design_model
+        lam = scalars["lam"]
+        bursty, arb = self.design_model.members
+        model = _rebind_scalars(
+            self.design_model,
+            members=(_rebind_scalars(bursty, lam=lam), _rebind_scalars(arb, lam=lam)),
+        )
+        return _rebind_scalars(self, lam=lam), model
 
     def init_state(self, cells: int) -> MSGCState:
         R, n, W = self.slots, self.n, self.W
@@ -369,7 +464,8 @@ class MSGCKernel(SchemeKernel):
             if dj >= W - 2:
                 can = ~state.pend[:, sl].flatten(1).any(dim=1)
                 if self.has_d2:
-                    can &= (state.d2[:, sl].sum(dim=2) >= self.n - self.lam).all(dim=1)
+                    need = self.n - _per_cell(self.lam, 2)
+                    can &= (state.d2[:, sl].sum(dim=2) >= need).all(dim=1)
             else:
                 can = self._zeros(state.cells)
             state = self._mark_done(state, job, can, t, deadline=dj == self.T)
@@ -389,6 +485,13 @@ class DCGCKernel(SchemeKernel):
     def __init__(self, scheme, device="cuda"):
         super().__init__(scheme, device)
         self.C, self.s = scheme.C, scheme.s
+        # `s` enters only as the per-cluster count threshold, so s sweeps at
+        # fixed (n, C) fuse; C is structural (a loop bound of the cluster
+        # reductions)
+        self.fused_params = ("s",)
+
+    def bind_fused(self, scalars: dict):
+        return _bind_cluster_s(self, scalars)
 
     def init_state(self, cells: int) -> DCGCState:
         return DCGCState(prev=self._zeros(cells, self.n), **self._base_arrays(cells))
@@ -417,6 +520,10 @@ class SBGCKernel(SchemeKernel):
         super().__init__(scheme, device)
         self.C, self.s = scheme.C, scheme.s
         self.block_of = torch.as_tensor(scheme.block_of, dtype=torch.int64, device=self.device)
+        self.fused_params = ("s",)
+
+    def bind_fused(self, scalars: dict):
+        return _bind_cluster_s(self, scalars)
 
     def init_state(self, cells: int) -> SBGCState:
         return SBGCState(**self._base_arrays(cells))
@@ -426,6 +533,15 @@ class SBGCKernel(SchemeKernel):
             return state
         can = _cluster_counts_ok(stragglers, self.block_of, self.C, self.s)
         return self._mark_done(state, t, can, t, deadline=True)
+
+
+def _bind_cluster_s(kernel, scalars: dict):
+    """``bind_fused`` of the clustered kernels: ``s`` on the kernel and on
+    its cluster model."""
+    if "s" not in scalars:
+        return kernel, kernel.design_model
+    s = scalars["s"]
+    return _rebind_scalars(kernel, s=s), _rebind_scalars(kernel.design_model, s=s)
 
 
 class UncodedKernel(SchemeKernel):
@@ -556,6 +672,7 @@ class GateKernel:
         mok = member_ok(candidate)
         resolved = mok.any(dim=1)
         cand, waited = candidate, torch.zeros_like(candidate)
+        # repro: allow[tracer-safety]: the gate's one sanctioned read a round (GateKernel.host_syncs): does any cell have anything to wait out
         if self._host_check((~resolved & candidate.any(dim=1)).any()):
             cand, waited, mok, resolved = self._wait_out(
                 gs, tails, member_ok, candidate, cost, mok, resolved)
@@ -584,6 +701,7 @@ class GateKernel:
         cand = candidate & ~empty[:, None]
         lb_fns = [m.drops_lower_bound_fn_batch(tail, cost)
                   for m, tail in zip(self.members, tails)]
+        # repro: allow[tracer-safety]: the greedy loop's sanctioned read an iteration (GateKernel.host_syncs): is any cell still unresolved
         while self._host_check((~resolved & cand.any(dim=1)).any()):
             active = ~resolved & cand.any(dim=1)
             # rank-free lower bound on the drops still needed: no alive

@@ -20,7 +20,13 @@ Port of ``src/repro/core/straggler.py``:
 The models' batched hooks (``*_batch``) serve the lockstep gate
 (``core.kernel.GateKernel``) on torch tensors, on the CPU or on the card.
 Their window statistics go through ``kernels.gate_window``: the plain
-version for a CPU tensor, the CUDA kernels for a tensor on the card.
+version for a CPU tensor, the CUDA kernels for a tensor on the card.  In a
+grid-fused bucket (``core.batch``) a model's count threshold (``s`` of
+``PerRoundModel``, ``DynamicClusterModel`` and ``StochasticBlockModel``,
+``lam`` of ``BurstyModel`` and ``ArbitraryModel``) is a ``(cells,)`` tensor,
+one value a cell, and every hook broadcasts it per cell (``_per_cell``);
+window lengths, ``B``, ``N``, ``C`` and ``RepCoverageModel``'s ``s`` stay
+host ints.
 
 Deterministic sliding-window models used for code design:
 
@@ -133,6 +139,16 @@ def _spatial_min_drops(
     ks = (cum >= dn.clamp_min(1)[:, None]).to(torch.uint8).argmax(dim=1) + 1
     out = torch.where(dn <= 0, 0, ks)
     return torch.where(dn > S, n + 1, out)
+
+
+def _per_cell(thr, ndim: int):
+    """A threshold as it broadcasts against a ``(cells, ...)`` tensor of
+    ``ndim`` dims: a host int as it is, a fused per-cell ``(cells,)`` tensor
+    (a grid-fused bucket's stacked ``s`` or ``lam``, ``core.batch``) viewed
+    as ``(cells, 1, ...)``."""
+    if isinstance(thr, torch.Tensor):
+        return thr.view(thr.shape + (1,) * (ndim - 1))
+    return thr
 
 
 def _must_drop_min(md: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
@@ -310,21 +326,21 @@ class PerRoundModel(StragglerModel):
         if buf.shape[1]:
             # inside a multi-round window (WindowwiseOr member): the
             # committed rows must conform too — drops cannot fix them
-            hist_ok = (buf.sum(dim=2) <= self.s).all(dim=1)
+            hist_ok = (buf.sum(dim=2) <= _per_cell(self.s, 2)).all(dim=1)
             k = torch.where(hist_ok, k, cand.shape[1] + 1)
         return k
 
     def admit_fn_batch(self, buf):
         if buf.shape[1] == 0:
             return lambda cand: cand.sum(dim=1) <= self.s
-        hist_ok = (buf.sum(dim=2) <= self.s).all(dim=1)
+        hist_ok = (buf.sum(dim=2) <= _per_cell(self.s, 2)).all(dim=1)
         return lambda cand: hist_ok & (cand.sum(dim=1) <= self.s)
 
     def drops_lower_bound_fn_batch(self, buf, cost):
         s, sent = self.s, cost.shape[1] + 1
         if buf.shape[1] == 0:
             return lambda cand: (cand.sum(dim=1) - s).clamp_min(0)
-        hist_ok = (buf.sum(dim=2) <= s).all(dim=1)
+        hist_ok = (buf.sum(dim=2) <= _per_cell(s, 2)).all(dim=1)
         return lambda cand: torch.where(hist_ok, (cand.sum(dim=1) - s).clamp_min(0), sent)
 
     @property
@@ -847,7 +863,7 @@ class StochasticBlockModel(StragglerModel):
 
     def suffix_ok_batch(self, win):
         bl = self._blocks_on(win.device)
-        return _cluster_counts_ok(win, bl, self.C, self.s).all(dim=1)
+        return _cluster_counts_ok(win, bl, self.C, _per_cell(self.s, 2)).all(dim=1)
 
     def min_drops_batch(self, buf, cand, rank, order) -> torch.Tensor:
         bl = self._blocks_on(cand.device)

@@ -220,7 +220,22 @@ class SeededUncodedKernel(tk.UncodedKernel):
 
 
 class FragileGCKernel(tk.GCKernel):
+    """As the reference's fixture: both thresholds fuse (``s`` into the
+    decode count, ``d`` into the gate member)."""
+
     name = "fragile-gc"
+
+    def __init__(self, scheme, device="cuda"):
+        super().__init__(scheme, device)
+        self.fused_params = ("s", "d")
+
+    def bind_fused(self, scalars):
+        kernel, model = self, self.design_model
+        if "s" in scalars:
+            kernel = tk._rebind_scalars(self, code=tk._rebind_scalars(self.code, s=scalars["s"]))
+        if "d" in scalars:
+            model = tk._rebind_scalars(model, s=scalars["d"])
+        return kernel, model
 
 
 @pytest.fixture
