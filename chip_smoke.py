@@ -29,8 +29,9 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       mixtral-8x22b's 4,608-token prompt under its window of
                       4,096), in f32 and bf16; at head dim 256 paligemma-3b's
                       served MQA 8/1 prefill and the bf16 edges again, and
-                      hubert-xlarge's non-causal (8, 16, 500, 80), in f32 and
-                      bf16;
+                      hubert-xlarge's non-causal (8, 16, 500, 80) and its GC
+                      and M-SGC coded steps' (64 | 48, 16, 500, 80), in f32
+                      and bf16;
   5. gc_coding     -- the coded-combine kernel against its plain version;
   6. rmsnorm-bwd,  -- the backward kernels against the plain versions' autograd,
      attention-bwd    at the training shapes, in f32 and bf16, and attention's
@@ -38,7 +39,8 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       at head dim 256 the edges again and paligemma-3b's GC
                       and M-SGC coded steps' (64 | 48, 8, 320, 256) with kv
                       (.., 1, 320, 256), f32 and bf16, bit-identical on a
-                      second call;
+                      second call; hubert-xlarge's non-causal GC and M-SGC
+                      coded steps' (64 | 48, 16, 500, 80), f32 and bf16;
                       bf16 with q = k = v (a near one-hot softmax)
                       against autograd of the f32 plain version.  The RMSNorm
                       backward also at d 2048, 4096 and 8192, with gamma in
@@ -169,6 +171,12 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       for bit the same; the f32 coded gradient at 2 layers
                       against the plain path and against the sum of each
                       chunk's chunk_loss_sum gradient;
+ 11f. slice-audio-train -- the same for one full-width, full-depth
+                      hubert-xlarge (48 layers, non-causal MHA 16/16 at head
+                      dim 80, vocab 504): 500 seeded f32 frames and a label a
+                      frame, GC (64 sequences a step) and M-SGC (48): exactly
+                      96 / 48 attention and 193 / 97 RMSNorm launches a step;
+                      ``train_arch`` refuses its stub frontend;
  12. gate_window   -- both gate-window kernels against their plain versions,
                       exact, over windows of 0-32 rows (every row bucket's
                       edges), ragged n, (4096, 3, 256) and 5,000 cells (past
@@ -187,12 +195,25 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       run's busy time per round;
  14. grid          -- grid fusion: m-sgc's whole App.-J grid (``default_grid``
                       at n 256, 132 candidates in 4 shape buckets) over the
-                      same 64 traces x 44 rounds, both wait-outs: fused on the
-                      card equals ``fuse=False`` on the card bit for bit and
-                      the fused CPU run under the device contract; gate-window
-                      launches = the CPU run's plain calls, all wide.  Both
-                      walls, round loops, host syncs per bucket-round, and a
-                      profiled fused run's busy time per bucket-round;
+                      same 64 traces x 44 rounds, both wait-outs, fused on the
+                      card: wall, round loops, host syncs per bucket-round,
+                      launches; its first bucket (33 candidates) replayed:
+                      fused alone = the whole run's cells = ``fuse=False`` on
+                      the card bit for bit, = the fused CPU run under the
+                      device contract, gate-window launches = the CPU run's
+                      plain calls, all wide, and a profiled fused run's busy
+                      time per bucket-round;
+ 14c. open-specs   -- specs a user registers, over the same traces, both
+                      wait-outs, card against CPU under [sim]'s contract:
+                      m-sgc with a load-adaptive kernel (its load grows with
+                      each cell's pending jobs) under alpha 8 and a per-worker
+                      alpha, m-sgc's and sr-sgc's bursty member without its
+                      solver (the gate checks every drop count's variant), gc
+                      with a per-round model in numpy only; then all four
+                      beside their paper specs, grid-fused = ``fuse=False``
+                      bit for bit.  Gate-window launches = the CPU's plain
+                      calls, all wide; walls, host syncs per round, the numpy
+                      model's host reads;
      select        -- App.-J ``select_parameters`` on the card for m-sgc and gc
                       at n 256 (30-round probe), grid-fused and with
                       ``REPRO_GRID_FUSE=0`` (walls and round loops of both),
@@ -208,13 +229,13 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       the CPU's plain calls, all wide; wall per scenario and
                       each scheme's mean per-job time;
  17. multimodel    -- ``multimodel_training`` (examples/multimodel_training.py)
-                      at 64 workers, 4 models, batch 256, 16 jobs, 7 schemes:
+                      at 64 workers, 4 models, batch 256, 8 jobs, 7 schemes:
                       every decoded gradient against the full-batch one, and
                       one ``coded_combine`` launch per encode and decode;
  18. coded-train   -- ``coded_train`` (benchmarks/run.py coded-train) at full
-                      qwen2-0.5b width in bf16: 7 schemes x {ge-bursty,
-                      replayed-waves}, 2 models, n 8, batch 32 x 64 tokens, 8
-                      jobs; simulated clocks, step ms, peak memory, exact
+                      qwen2-0.5b width in bf16, cut to 8 of 24 layers: 7
+                      schemes x {ge-bursty, replayed-waves}, 2 models, n 8,
+                      batch 32 x 64 tokens, 8 jobs; simulated clocks, step ms, peak memory, exact
                       launches per step, its three gates; a profiled dc-gc step;
  18b. harness      -- ``repro_torch.dist.run_harness`` (the paper's master and
                       worker processes): 4 grad-mode worker processes on the
@@ -265,12 +286,18 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       launches' device time; the bf16 attention backward at
                       head dim 256 at [slice-vlm-train]'s GC shape (64, 8,
                       320, 256), kv (64, 1, 320, 256), and at one 64-key
-                      tile (64, 8, 64, 256), beside autograd of its plain
-                      version and of SDPA; the bf16 attention forward and
+                      tile (64, 8, 64, 256), and at head dim 80 at
+                      [slice-audio-train]'s non-causal GC shape (64, 16, 500,
+                      80), beside autograd of its plain version and of SDPA;
+                      the bf16 attention forward and
                       backward at head dim 64 at [launch]'s step shape (8,
                       14, 4096, 64), kv (8, 2, 4096, 64), 64 key tiles,
                       beside SDPA and its autograd (printed, not in the
                       kernels line).
+The checks that need no card -- [sim]'s descriptor-path ``simulate``,
+[select]'s legacy loop and [launch]'s dry-runs on meta tensors -- run on
+three processes of their own from the build on, beside the card's phases,
+which read their results.  ``[done]`` prints the seconds of each phase.
 The line before the last is nvidia-smi's name and power limit again; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -398,6 +425,17 @@ VLM_SEQS = {"gc": (TRAIN_SCHEMES["gc"]["s"] + 1) * VLM_TRAIN["batch"]["gc"],
 ATTN_DH256_TRAIN = (VLM_SEQS["gc"], 8, 1, VLM_SEQ, VLM_SEQ, 256, True, 0, None)
 ATTN_DH256_MSGC = (VLM_SEQS["m-sgc"], *ATTN_DH256_TRAIN[1:])
 ATTN_DH256_TILE = (VLM_SEQS["gc"], 8, 1, 64, 64, 256, True, 0, None)
+# [slice-audio-train]: hubert-xlarge at full width and depth, one model, bf16;
+# a sequence is PROMPT_LEN seeded f32 frame embeddings (the stubbed audio
+# frontend's output, 10 s at its 20 ms frame rate) with a seeded label a
+# frame; GC and M-SGC at [slice-vlm-train]'s job batches (VLM_TRAIN["batch"]:
+# 64 and 48 sequences a coded step), 3 steps each; the f32 gradient checks at
+# 2 layers over GC's view of a job of 8
+AUDIO_TRAIN = dict(frames=PROMPT_LEN, steps=3, grad_layers=2, grad_batch=8)
+# its attention in the GC and M-SGC coded steps: MHA 16/16 at head dim 80,
+# non-causal, over 8 key tiles of 64 (the dq kernel's two passes)
+ATTN_AUDIO_TRAIN = (VLM_SEQS["gc"], 16, 16, PROMPT_LEN, PROMPT_LEN, 80, False, 0, None)
+ATTN_AUDIO_MSGC = (VLM_SEQS["m-sgc"], *ATTN_AUDIO_TRAIN[1:])
 # the share of the card's memory a trainer run's peak may fill
 TRAIN_MEMORY_SHARE = 0.9
 # [launch]: the sharded train step at full qwen2-0.5b width and depth over
@@ -411,6 +449,12 @@ SIM_PARAMS = {"m-sgc": dict(B=2, W=3, lam=27), "sr-sgc": dict(B=2, W=3, lam=23),
               "gc": dict(s=15), "uncoded": {},
               # the clustered baselines at scheme_grid(256)'s operating point
               "dc-gc": dict(C=4, s=32), "sb-gc": dict(C=4, s=32)}
+# [open-specs]: [sim]'s traces through specs a user registers and no paper
+# scheme needs: m-sgc whose load grows with each cell's pending jobs (load x
+# (1 + slope x pending)) under [sim]'s alpha and a seeded per-worker alpha;
+# m-sgc's and sr-sgc's bursty member without its min_drops_batch; gc's
+# per-round model in numpy only
+OPEN_SPECS = dict(pending_slope=0.25, alpha_seed=5)
 # App.-J selection: benchmarks/run.py's small grids on a 30-round probe
 SELECT_GRIDS = {
     "m-sgc": [{"B": B, "W": W, "lam": lam} for B, W in ((1, 2), (2, 3))
@@ -420,8 +464,8 @@ SELECT_GRIDS = {
 # Sec. 6: the scenario sweep at the paper's cluster size over the trace library,
 # with scheme_grid(256)'s 7 schemes as the specs (benchmarks/run.py scenario-sweep)
 SCENARIOS = dict(n=256, rounds=40, traces=16, seed=0)
-# the multi-model experiment of examples/multimodel_training.py over 16 jobs
-MULTIMODEL = dict(jobs=16, workers=64, models=4)
+# the multi-model experiment of examples/multimodel_training.py, over 8 jobs
+MULTIMODEL = dict(jobs=8, workers=64, models=4)
 # [slice-ssm-train]: TRAIN's trainer at full mamba2-1.3b width over sequences
 # of 256 tokens, 4 of its 64-token chunks, so that the state entering a chunk
 # (h_prev) is not 0 and the backward's inter-chunk terms run
@@ -429,8 +473,10 @@ SSM_TRAIN_SEQ = 256
 # the f32 gradient of mamba2-1.3b at full width, 2 layers, 2 x 500 tokens (8
 # chunks, the last padded), kernels against plain=True
 SSM_GRAD = dict(layers=2, batch=2, seq=500)
-# bench_coded_train at full qwen2-0.5b width, [train-full]'s shapes
-CODED_TRAIN = dict(n=8, models=2, jobs=8, seq=64)
+# bench_coded_train at full qwen2-0.5b width, [train-full]'s shapes, its depth
+# cut to 8 of 24 layers (the 14 trainer runs' steps are host-bound: a third of
+# the launches, a third of the phase)
+CODED_TRAIN = dict(n=8, models=2, jobs=8, seq=64, layers=8)
 # [harness]: run_harness with grad-mode workers at full qwen2-0.5b width, its
 # depth cut to 2 of 24 layers, in f32: 165,960,320 parameters, a 664 MB
 # gradient vector through the pipes per task (the tied embedding alone is 545
@@ -464,7 +510,15 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+#: seconds a phase took: the time up to each of its lines, since the line before
+PHASE_SECONDS: dict[str, float] = {}
+_LAST_SAY = [time.perf_counter()]
+
+
 def say(phase: str, msg: str) -> None:
+    now = time.perf_counter()
+    PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + now - _LAST_SAY[0]
+    _LAST_SAY[0] = now
     print(f"[{phase}] {msg}", flush=True)
 
 
@@ -645,6 +699,9 @@ def main() -> None:
                   "attn_bwd_dkdv_bf16_kernel<128>"):
         say("build", f"{label}: {ptxas.get(label)}; HMMA {hmma.get(label)}")
 
+    # the checks that need no card run beside the card's phases from here
+    host_pool, host = _host_checks()
+
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
@@ -662,12 +719,14 @@ def main() -> None:
 
     # 3. rmsnorm kernel vs plain, at every width a serving slice runs it (the
     # moe slice's prefill and decode rows too, and hubert-xlarge's forward),
-    # at qwen2-moe-a2.7b's GC and M-SGC coded steps, and a few others
+    # at qwen2-moe-a2.7b's, paligemma-3b's and hubert-xlarge's GC and M-SGC
+    # coded steps, and a few others
     for rows, d in [(BATCH * PROMPT_LEN, 896), (BATCH, 896), (130, 640), (1, 8192),
                     (BATCH * PROMPT_LEN, 2048), (BATCH, 2048), (TRAIN_ROWS, 2048),
                     (MSGC_ROWS, 2048), *[(n * VLM_SEQ, 2048) for n in VLM_SEQS.values()],
                     (MIXTRAL["batch"] * MIXTRAL["prompt"], 6144), (MIXTRAL["batch"], 6144),
-                    (BATCH * PROMPT_LEN, 1280)]:
+                    (BATCH * PROMPT_LEN, 1280),
+                    *[(n * AUDIO_TRAIN["frames"], 1280) for n in VLM_SEQS.values()]]:
         for dtype in (torch.float32, torch.bfloat16):
             x = randn(rows, d, dtype=dtype)
             for gdtype in sorted({torch.float32, dtype}, key=str):
@@ -708,7 +767,7 @@ def main() -> None:
                                           ATTN_DH128_TRAIN, ATTN_DH128_MSGC,
                                           ATTN_DH256_SERVED, *ATTN_DH256_CASES,
                                           ATTN_DH256_TRAIN, ATTN_DH256_MSGC,
-                                          ATTN_AUDIO_SERVED)
+                                          ATTN_AUDIO_SERVED, ATTN_AUDIO_TRAIN, ATTN_AUDIO_MSGC)
               for dtype in (torch.float32, torch.bfloat16)]
     for b, hq, hkv, sq, sk, dh, causal, window, valid_k, dtype, strided in cases:
         if strided:
@@ -755,7 +814,8 @@ def main() -> None:
     ] + [c + (torch.bfloat16,) for c in ATTN_BF16_EDGES] + \
         [c + (dtype,) for c in (ATTN_DH80_SERVED, *ATTN_DH80_CASES, ATTN_DH128_TRAIN,
                                 ATTN_DH128_MSGC, ATTN_DH256_TRAIN, ATTN_DH256_MSGC,
-                                ATTN_DH256_TILE, *ATTN_DH256_CASES)
+                                ATTN_DH256_TILE, *ATTN_DH256_CASES, ATTN_AUDIO_TRAIN,
+                                ATTN_AUDIO_MSGC)
          for dtype in (torch.float32, torch.bfloat16)]
     for b, h, g_kv, sq, sk, dh_, causal, window, valid_k, dtype in bwd_cases:
         q, do = (heads_view(b, h, sq, dh_, dtype) for _ in range(2))
@@ -776,6 +836,9 @@ def main() -> None:
             errs["flash_attention_bwd dh128"] = err
         if (b, sq, dh_, dtype) == (ATTN_DH256_TRAIN[0], VLM_SEQ, 256, torch.bfloat16):
             errs["flash_attention_bwd dh256"] = err
+        if (b, h, sq, dh_, causal, dtype) == (*ATTN_AUDIO_TRAIN[:2], PROMPT_LEN, 80, False,
+                                              torch.bfloat16):
+            errs["flash_attention_bwd dh80 noncausal"] = err
     # head dim 256 at the vlm's GC training shape: a second call bit for bit the
     # same (no atomics), in f32 and bf16
     b, h, g_kv, sq = ATTN_DH256_TRAIN[:4]
@@ -905,22 +968,33 @@ def main() -> None:
     # and backward; bit-identical bf16 gradients; the f32 checks at 2 layers
     vlm_train_launches = _slice_vlm_train(dev)
 
+    # 11f. slice-audio-train: full-width, full-depth hubert-xlarge the same
+    # way, over seeded frames and per-frame labels, non-causal attention at
+    # head dim 80 forward and backward
+    audio_train_launches = _slice_audio_train(dev)
+
     # 12-15. the simulator's device path: the gate-window kernels, the
     # Table-1 grid, App.-J selection and the adaptive trainer
     errs.update(_gate_window_check(dev))
-    launches.update(_sim(dev))
+    launches.update(_sim(dev, host["sim"]))
     # 14b. grid: m-sgc's whole App.-J grid grid-fused, against one loop a spec
     t_grid = time.perf_counter()
     grid_launches = _grid(dev)
     say("grid", f"phase wall {time.perf_counter() - t_grid:.1f} s; launches {grid_launches}")
-    _select(dev)
+    # 14c. open-specs: load-adaptive loads, gates without solvers and a model
+    # in numpy only, over [sim]'s traces, card against CPU
+    t_open = time.perf_counter()
+    open_launches = _open_specs(dev)
+    say("open-specs", f"phase wall {time.perf_counter() - t_open:.1f} s; launches "
+                      f"{open_launches}")
+    _select(dev, host["select"])
     _adaptive(dev)
 
     # 16-18. the Sec.-6 comparison: the scenario sweep over the trace library,
     # the 7-scheme multi-model training and the 7-scheme coded training
     _scenarios(dev)
     _multimodel(dev)
-    _coded_train(dev, cfg)
+    _coded_train(dev, cfg.replace(num_layers=CODED_TRAIN["layers"]))
 
     # 18b. harness: real master/worker coded rounds, grad-mode workers on the
     # card at full qwen2-0.5b width
@@ -928,7 +1002,8 @@ def main() -> None:
 
     # 18c. launch: the launch tooling's sharded step on a one-rank NCCL mesh,
     # bit-identical to the plain step, against the dry-run's count on meta
-    _launch(dev, heads_view)
+    _launch(dev, heads_view, host["dryrun"])
+    host_pool.shutdown()
 
     # 19. timings at the main paths' shapes (bf16, as served and trained)
     rows = []
@@ -974,6 +1049,11 @@ def main() -> None:
     row["launches_of"] = f"[slice-vlm-train] ({VLM_ARCH} coded training, gc and m-sgc)"
     row["max_abs_err"] = errs["flash_attention_bwd dh256"]
     rows.append(row)
+    row = _attention_bwd_timing(ATTN_AUDIO_TRAIN, heads_view, ptxas)
+    row["launches"] = audio_train_launches["flash_attention_bwd"]
+    row["launches_of"] = f"[slice-audio-train] ({AUDIO_ARCH} coded training, gc and m-sgc)"
+    row["max_abs_err"] = errs["flash_attention_bwd dh80 noncausal"]
+    rows.append(row)
     _attention_bwd_timing(ATTN_DH256_TILE, heads_view, ptxas)  # printed: one 64-key tile
     # printed: the dh-64 forward and backward at [launch]'s step shape, 64 key tiles
     _attention_served_timing(ATTN_LAUNCH, heads_view, ptxas, iters=10)
@@ -997,7 +1077,9 @@ def main() -> None:
     n = SPIN_COUNTS["sessions"]
     say("timings", f"profiler sessions {n}: spins recorded {SPIN_COUNTS['lead']} of {2 * SPINS * n}"
                    f" before the work, {SPIN_COUNTS['trail']} of {SPINS * n} after it")
-    say("done", f"{time.perf_counter() - t_start:.1f} s")
+    say("done", f"{time.perf_counter() - t_start:.1f} s; seconds by phase (each line's "
+                f"time since the line before): "
+                f"{ {k: round(v, 1) for k, v in PHASE_SECONDS.items()} }")
 
     print(json.dumps({"kernels": rows}))
     print(nvidia_smi())
@@ -1007,7 +1089,7 @@ def main() -> None:
 def _rmsnorm_bwd_check(dev, cfg, randn, compare) -> float:
     """The RMSNorm backward kernel against autograd of the plain version, in f32
     and bf16 with gamma in f32 and bf16: the coded steps' shapes (qwen2-0.5b's,
-    qwen2-moe-a2.7b's and paligemma-3b's), every bucket
+    qwen2-moe-a2.7b's, paligemma-3b's and hubert-xlarge's), every bucket
     of warps a row (d 896 to 8192), the chunked path (f32 at 8192, a bf16 row of
     200 bytes); dgamma and dx bit-identical over 10 calls; the barrier counters
     at 0 after; one device kernel a call.  Returns the error at the GC step's
@@ -1020,6 +1102,7 @@ def _rmsnorm_bwd_check(dev, cfg, randn, compare) -> float:
     worst = None
     for rows, d in [(TRAIN_ROWS, cfg.d_model), (MSGC_ROWS, cfg.d_model), (TRAIN_ROWS, 2048),
                     (MSGC_ROWS, 2048), *[(n * VLM_SEQ, 2048) for n in VLM_SEQS.values()],
+                    *[(n * AUDIO_TRAIN["frames"], 1280) for n in VLM_SEQS.values()],
                     (130, 640), (3, 100), (2048, 2048), (1024, 4096), (512, 8192)]:
         for dtype in (torch.float32, torch.bfloat16):
             for gdtype in (torch.float32, torch.bfloat16):
@@ -1658,12 +1741,26 @@ def _vlm_batch(dev, cfg, job: int, batch: int) -> dict:
     return {"prefix_embeds": prefix, **text}
 
 
-def _vlm_jobs(dev, cfg, name):
+def _audio_batch(dev, cfg, job: int, batch: int) -> dict:
+    """One audio job's batch: ``batch`` x ``AUDIO_TRAIN["frames"]`` seeded f32
+    frame embeddings (the stubbed frontend's output, cast by the model) and a
+    seeded label a frame."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2_000 + job)
+    shape = (batch, AUDIO_TRAIN["frames"])
+    frames = torch.randn(shape + (cfg.d_model,), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.vocab_size, shape, generator=gen, device=dev)
+    return {"frames": frames, "labels": labels}
+
+
+def _coded_jobs(dev, cfg, name, make_batch):
     """(step, [(coded batch, weights), ...]) for ``VLM_TRAIN["steps"]`` jobs
-    of ``name``: GC (s 3) on ``gc_chunked_batch`` with ``gc_round_weights``
-    of 5 random survivors of 8, or M-SGC (B 1, W 2, lambda 2) on
-    ``coded_slot_batch`` with its decode weights, worker t % n straggling in
-    round t (within its tolerance)."""
+    of ``name``, each job's batch from ``make_batch(dev, cfg, job, batch)``:
+    GC (s 3) on ``gc_chunked_batch`` with ``gc_round_weights`` of 5 random
+    survivors of 8, or M-SGC (B 1, W 2, lambda 2) on ``coded_slot_batch``
+    with its decode weights, worker t % n straggling in round t (within its
+    tolerance)."""
     import numpy as np
     import torch
 
@@ -1675,7 +1772,7 @@ def _vlm_jobs(dev, cfg, name):
     if name == "gc":
         s = TRAIN_SCHEMES["gc"]["s"]
         code, rng = make_gradient_code(n, s, prefer_rep=False), np.random.default_rng(0)
-        jobs = [(gc_chunked_batch(_vlm_batch(dev, cfg, job, b), n, s), gc_round_weights(
+        jobs = [(gc_chunked_batch(make_batch(dev, cfg, job, b), n, s), gc_round_weights(
             code, sorted(rng.choice(n, n - s, replace=False).tolist())).to(dev))
             for job in range(1, steps + 1)]
         return make_coded_train_step(cfg, n, s), jobs
@@ -1687,7 +1784,7 @@ def _vlm_jobs(dev, cfg, name):
         stragglers[t % n] = True
         sch.step(t, stragglers)
         for jd in sch.collect_decodes(t):
-            jobs.append((coded_slot_batch(_vlm_batch(dev, cfg, jd.job, b),
+            jobs.append((coded_slot_batch(make_batch(dev, cfg, jd.job, b),
                                           sch.chunk_slots(jd.job), num_chunks),
                          torch.from_numpy(sch.decode_weights(jd)).to(dev)))
     return make_coded_train_step(cfg, n, 0, num_chunks=num_chunks), jobs
@@ -1699,27 +1796,14 @@ def _slice_vlm_train(dev) -> dict:
     ``make_coded_train_step`` (``coded_loss`` -> ``token_nll``: the tied head
     over every patch and text position, then the text's slice -> per layer
     under ``_remat`` RMSNorm, attention at head dim 256, MQA 8/1, forward and
-    backward kernels, RMSNorm, SwiGLU -> AdamW), GC and M-SGC for
-    ``VLM_TRAIN["steps"]`` steps each: exact launches a step, finite losses,
-    step ms, the peak against the reckoning printed and ``TRAIN_MEMORY_SHARE``,
-    a profiled step; two identical bf16 coded gradients bit for bit the same;
-    the f32 coded gradient at 2 layers against the plain path and against the
-    sum of each chunk's ``chunk_loss_sum`` gradient.  Returns the trainer
-    steps' attention backward launches."""
-    import numpy as np
-    import torch
-
+    backward kernels, RMSNorm, SwiGLU -> AdamW), GC and M-SGC, as
+    :func:`_stub_train` runs them.  Returns the trainer steps' attention
+    backward launches."""
     from repro_torch.configs import get_config
-    from repro_torch.train import init_train_state
 
     phase = "slice-vlm-train"
     cfg = get_config(VLM_ARCH)
-    counters = _train_counters()
-    per_step = _per_step(cfg)
-    total = torch.cuda.get_device_properties(dev).total_memory
-    room = TRAIN_MEMORY_SHARE * total
     seq = cfg.num_prefix_tokens + VLM_TRAIN["text"]
-    state = 12 * cfg.param_count()  # bf16 weight and gradient, f32 AdamW moments
 
     def head_bytes(seqs):
         """The head's logits over every position (bf16) and the zero-filled
@@ -1729,20 +1813,85 @@ def _slice_vlm_train(dev) -> dict:
         return 2 * 2 * seqs * seq * cfg.vocab_size + 2 * 4 * seqs * text * cfg.vocab_size
 
     seqs = VLM_SEQS
-    say(phase, f"{cfg.name}: {cfg.num_layers} layers (full depth), {cfg.param_count()} params in "
-               f"{cfg.dtype}; sequences of {cfg.num_prefix_tokens} patch embeddings + "
-               f"{VLM_TRAIN['text']} text tokens; reckoning: training state {state} B (12 B a "
-               f"parameter; two models {2 * state} B), the head's logits, their sliced "
+    say(phase, f"{cfg.name}: sequences of {cfg.num_prefix_tokens} patch embeddings + "
+               f"{VLM_TRAIN['text']} text tokens; reckoning: the head's logits, their sliced "
                f"gradient and the text's f32 log-softmax with its gradient {head_bytes(128)} B "
                f"at TRAIN's batch {TRAIN['batch']} a job (128 sequences), "
                f"{head_bytes(seqs['gc'])} B at {VLM_TRAIN['batch']['gc']} ({seqs['gc']} "
                f"sequences, GC) and {head_bytes(seqs['m-sgc'])} B at "
                f"{VLM_TRAIN['batch']['m-sgc']} ({seqs['m-sgc']}, M-SGC: its grid has 32 "
-               f"chunks); {TRAIN_MEMORY_SHARE:g} of the card is {room:.0f} B of {total} B")
+               f"chunks)")
+    return _stub_train(phase, dev, cfg, _vlm_batch, seq, head_bytes,
+                       VLM_TRAIN["grad_layers"], VLM_TRAIN["grad_batch"])
+
+
+def _slice_audio_train(dev) -> dict:
+    """[slice-audio-train]: the audio family's coded training on the card.
+    One full-width, full-depth hubert-xlarge in bf16 from seed 0 through
+    ``make_coded_train_step`` over seeded frames and per-frame labels
+    (``coded_loss`` -> the head over every frame -> per layer under
+    ``_remat`` RMSNorm, non-causal attention at head dim 80 over 8 key tiles,
+    forward and backward kernels, RMSNorm, MLP -> AdamW), GC and M-SGC at
+    [slice-vlm-train]'s job batches, as :func:`_stub_train` runs them; and
+    ``train_arch``'s refusal of a stub-frontend config (it draws token
+    batches only, as the JAX package's ``run_arch``).  Returns the trainer
+    steps' attention backward launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_arch
+
+    phase = "slice-audio-train"
+    cfg = get_config(AUDIO_ARCH)
+    frames = AUDIO_TRAIN["frames"]
+
+    def head_bytes(seqs):
+        """The head's logits over every frame (bf16) and their gradient, and
+        their f32 log-softmax and its gradient."""
+        return 2 * 2 * seqs * frames * cfg.vocab_size + 2 * 4 * seqs * frames * cfg.vocab_size
+
+    try:
+        train_arch(AUDIO_ARCH, steps=1, full=True, device=dev)
+        fail(f"{phase}: train_arch took {AUDIO_ARCH}'s stub frontend")
+    except NotImplementedError as e:
+        say(phase, f"train_arch refuses it: {e}")
+    say(phase, f"{cfg.name}: sequences of {frames} seeded f32 frames of width {cfg.d_model} "
+               f"and a label a frame (vocab {cfg.vocab_size}); reckoning: the head's logits, "
+               f"their gradient and their f32 log-softmax with its gradient "
+               f"{head_bytes(VLM_SEQS['gc'])} B at GC's {VLM_SEQS['gc']} sequences, "
+               f"{head_bytes(VLM_SEQS['m-sgc'])} B at M-SGC's {VLM_SEQS['m-sgc']}; the f32 "
+               f"frames {4 * VLM_SEQS['gc'] * frames * cfg.d_model} B at GC's")
+    return _stub_train(phase, dev, cfg, _audio_batch, frames, head_bytes,
+                       AUDIO_TRAIN["grad_layers"], AUDIO_TRAIN["grad_batch"])
+
+
+def _stub_train(phase, dev, cfg, make_batch, seq, head_bytes, grad_layers, grad_batch) -> dict:
+    """One full-width, full-depth model of a stub-frontend family (``cfg``,
+    batches from ``make_batch``, ``seq`` positions a sequence) in bf16 from
+    seed 0 through ``make_coded_train_step``, GC and M-SGC for
+    ``VLM_TRAIN["steps"]`` steps each: exact launches a step
+    (``_per_step``), finite losses, step ms, the peak against the reckoning
+    (12 B a parameter of training state, and ``head_bytes(sequences)``) and
+    ``TRAIN_MEMORY_SHARE``, a profiled step; two identical bf16 coded
+    gradients bit for bit the same; the f32 coded gradient at
+    ``grad_layers`` layers against the plain path and against the sum of
+    each chunk's ``chunk_loss_sum`` gradient.  Returns the trainer steps'
+    attention backward launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.train import init_train_state
+
+    counters = _train_counters()
+    per_step = _per_step(cfg)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    room = TRAIN_MEMORY_SHARE * total
+    state = 12 * cfg.param_count()  # bf16 weight and gradient, f32 AdamW moments
+    say(phase, f"{cfg.name}: {cfg.num_layers} layers (full depth), {cfg.param_count()} params "
+               f"in {cfg.dtype}; training state {state} B (12 B a parameter); "
+               f"{TRAIN_MEMORY_SHARE:g} of the card is {room:.0f} B of {total} B")
     params, opt = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
     totals, last = {"flash_attention_bwd": 0}, {}
     for name in VLM_TRAIN["batch"]:
-        step, jobs = _vlm_jobs(dev, cfg, name)
+        step, jobs = _coded_jobs(dev, cfg, name, make_batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
@@ -1771,7 +1920,8 @@ def _slice_vlm_train(dev) -> dict:
         if any(launches[k] != per_step[k] * steps for k in per_step):
             fail(f"{phase} {name}: launches {launches} over {steps} steps, expected "
                  f"{per_step} per step")
-        if steps != VLM_TRAIN["steps"] or n_seq != seqs[name] or not np.isfinite(losses).all():
+        if (steps != VLM_TRAIN["steps"] or n_seq != VLM_SEQS[name]
+                or not np.isfinite(losses).all()):
             fail(f"{phase} {name}: {steps} steps of {n_seq} sequences, losses {losses}")
         if peak > room:
             fail(f"{phase} {name}: peak memory {peak} B past {TRAIN_MEMORY_SHARE:g} of the "
@@ -1787,14 +1937,15 @@ def _slice_vlm_train(dev) -> dict:
     torch.cuda.empty_cache()
     _determinism(phase, dev, cfg, last["coded"], last["w"])
     del last
-    _vlm_gradient_check(dev, cfg.replace(dtype="float32", num_layers=VLM_TRAIN["grad_layers"]))
+    _stub_gradient_check(phase, dev, cfg.replace(dtype="float32", num_layers=grad_layers),
+                         make_batch, grad_batch)
     return totals
 
 
-def _vlm_gradient_check(dev, cfg32) -> None:
+def _stub_gradient_check(phase, dev, cfg32, make_batch, b) -> None:
     """f32 coded gradient of ``cfg32`` (full width, cut depth) at GC's coded
-    view of a job of ``VLM_TRAIN["grad_batch"]`` with s stragglers: through
-    the kernels against the plain path, and against the sum of each chunk's
+    view of a job of ``b`` from ``make_batch`` with s stragglers: through the
+    kernels against the plain path, and against the sum of each chunk's
     ``chunk_loss_sum`` gradient, each chunk in a forward of its own."""
     import torch
 
@@ -1807,9 +1958,9 @@ def _vlm_gradient_check(dev, cfg32) -> None:
 
     counters = _train_counters()
     per_step = _per_step(cfg32)
-    n, s, b = TRAIN["n"], TRAIN_SCHEMES["gc"]["s"], VLM_TRAIN["grad_batch"]
+    n, s = TRAIN["n"], TRAIN_SCHEMES["gc"]["s"]
     params = init_params(cfg32, torch.Generator(device=dev).manual_seed(1))
-    batch = _vlm_batch(dev, cfg32, 1, b)
+    batch = make_batch(dev, cfg32, 1, b)
     survivors = [0, 2, 3, 5, 7]
     w = gc_round_weights(make_gradient_code(n, s, prefer_rep=False), survivors).to(dev)
     coded = gc_chunked_batch(batch, n, s)
@@ -1818,10 +1969,10 @@ def _vlm_gradient_check(dev, cfg32) -> None:
     got = value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n), params)
     launches = {k: c.launches for k, c in counters.items()}
     if any(launches[k] != per_step[k] for k in per_step):
-        fail(f"slice-vlm-train: f32 coded gradient launches {launches}, expected {per_step}")
+        fail(f"{phase}: f32 coded gradient launches {launches}, expected {per_step}")
     what = (f"f32 {cfg32.num_layers}-layer {cfg32.name} coded gradient ({n * (s + 1)} x "
             f"{b // n} sequences, survivors {survivors}) vs")
-    _check_coded_gradient("slice-vlm-train", f"{what} plain path's", got,
+    _check_coded_gradient(phase, f"{what} plain path's", got,
                           value_and_grad(lambda p: coded_loss(p, cfg32, coded, w, n, plain=True),
                                          params))
     cb = b // n
@@ -1838,9 +1989,8 @@ def _vlm_gradient_check(dev, cfg32) -> None:
         del grads
     for a in tree_leaves(total):
         a.div_(n * cb)
-    _check_coded_gradient("slice-vlm-train", f"{what} sum of the {n} chunks' chunk_loss_sum "
-                                             f"gradients, each chunk alone",
-                          got, (total_loss / (n * cb), total))
+    _check_coded_gradient(phase, f"{what} sum of the {n} chunks' chunk_loss_sum gradients, "
+                                 f"each chunk alone", got, (total_loss / (n * cb), total))
     del got, total, params
     torch.cuda.empty_cache()
 
@@ -2106,7 +2256,6 @@ def _rmsnorm_bwd_timings(dev, cfg, randn, ptxas) -> list:
     is the difference) and ``torch.add`` over the same bytes (reads two
     (rows, d) tensors, writes one).  Returns the JSON row: (8192, 896) bf16."""
     import ctypes
-    import subprocess
 
     import torch
     import torch.nn.functional as F
@@ -2115,11 +2264,10 @@ def _rmsnorm_bwd_timings(dev, cfg, randn, ptxas) -> list:
     from repro_torch.kernels.rmsnorm import ref as rn_ref
     from repro_torch.kernels.rmsnorm.rmsnorm import _bwd_fn, _plan, rmsnorm_bwd
 
-    lib = _build.BUILD_ROOT / "variants" / f"rmsnorm_bwd_notail_{_build._digest()}.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-DRMSNORM_BWD_TAIL=0", "-shared", "-I",
-                    str(_build.CSRC), str(_build.CSRC / "rmsnorm_bwd.cu"), "-o", str(lib)],
-                   check=True, capture_output=True, timeout=600)
+    proc, lib = BACKGROUND.pop("rmsnorm_bwd_notail", None) or _notail_build()
+    log, _ = proc.communicate(timeout=600)
+    if proc.returncode:
+        fail(f"timings: nvcc of the RMSNorm backward without its tail: {log[-2000:]}")
     notail = ctypes.CDLL(str(lib)).rmsnorm_bwd
     notail.argtypes, notail.restype = _bwd_fn().argtypes, ctypes.c_int
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -2350,13 +2498,112 @@ def _gate_window_check(dev) -> dict:
     return worst
 
 
-def _sim(dev) -> dict:
+def _host_checks():
+    """Starts the checks that need no card on processes of their own (spawned,
+    one torch thread each, the card hidden from them), so that they run while
+    this process drives the card: ``[sim]``'s descriptor-path ``simulate``,
+    ``[select]``'s legacy per-candidate loop and ``[launch]``'s dry-runs on
+    meta tensors.  Returns the pool and each check's future; the phases read
+    the results and the last of them shuts the pool down."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(max_workers=3, mp_context=mp.get_context("spawn"),
+                               initializer=_host_init)
+    BACKGROUND["rmsnorm_bwd_notail"] = _notail_build()
+    return pool, {"sim": pool.submit(_host_sim), "select": pool.submit(_host_select),
+                  "dryrun": pool.submit(_host_dryruns)}
+
+
+#: processes started ahead of the phase that reads them
+BACKGROUND: dict = {}
+
+
+def _notail_build():
+    """Starts nvcc on the RMSNorm backward built without its dgamma tail
+    (``-DRMSNORM_BWD_TAIL=0``, [timings]' comparison) into
+    ``build/repro_torch/variants/``; returns ``(process, library)``.  The
+    process is killed at exit if still running."""
+    import atexit
+
+    from repro_torch.kernels import _build
+
+    lib = _build.BUILD_ROOT / "variants" / f"rmsnorm_bwd_notail_{_build._digest()}.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-DRMSNORM_BWD_TAIL=0",
+                             "-shared", "-I", str(_build.CSRC),
+                             str(_build.CSRC / "rmsnorm_bwd.cu"), "-o", str(lib)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(proc.kill)
+    return proc, lib
+
+
+def _host_init() -> None:
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _host_sim() -> dict:
+    """The descriptor-path ``simulate`` of each ``[sim]`` spec and wait-out on
+    the first ``SIM["parity_traces"]`` traces, at the J that ``simulate_batch``
+    fits (the trace's rounds less T): ``{(name, waitout): [SimResult, ...]}``."""
+    from repro_torch.core import make_scheme, simulate
+
+    n, rounds, traces = SIM["n"], SIM["rounds"], _sim_traces()
+    out = {}
+    for waitout in ("selective", "all"):
+        for name, params in SIM_PARAMS.items():
+            J = rounds - make_scheme(name, n, rounds, **params).T
+            out[name, waitout] = [
+                simulate(make_scheme(name, n, J, **params), traces[k], alpha=SIM["alpha"], J=J,
+                         waitout=waitout) for k in range(SIM["parity_traces"])]
+    return out
+
+
+def _select_probe():
+    """``[select]``'s probe: 30 rounds of [sim]'s GE chain at n 256, and its alpha."""
+    from repro_torch.core import GilbertElliotSource
+
+    src = GilbertElliotSource(n=SIM["n"], seed=100, **SIM_GE)
+    return src.sample_delays(30), src.alpha
+
+
+def _host_select() -> dict:
+    """The legacy per-candidate selection over each ``SELECT_GRIDS`` grid:
+    ``{name: (Candidate, seconds)}``."""
+    from repro_torch.core import select_parameters_legacy
+
+    probe, alpha = _select_probe()
+    out = {}
+    for name, grid in SELECT_GRIDS.items():
+        t0 = time.perf_counter()
+        want = select_parameters_legacy(name, SIM["n"], probe, alpha=alpha, grid=grid)
+        out[name] = (want, time.perf_counter() - t0)
+    return out
+
+
+def _host_dryruns() -> list:
+    """``run_pair`` of qwen2-0.5b train_4k on both production meshes, plain and
+    GC, on meta tensors: ``[(multi_pod, coded, record), ...]``."""
+    from repro_torch.launch import dryrun
+
+    return [(multi_pod, coded, dryrun.run_pair(ARCH, "train_4k", multi_pod=multi_pod,
+                                               coded=coded, verbose=False))
+            for multi_pod in (False, True) for coded in (False, "gc")]
+
+
+def _sim(dev, host) -> dict:
     """The Table-1 grid through ``simulate_batch`` on the card and on the CPU,
-    in both wait-outs; returns the gate-window launches on the card."""
+    in both wait-outs, and its first traces against the descriptor path's
+    ``simulate`` (from ``host``, the future of :func:`_host_sim`); returns the
+    gate-window launches on the card."""
     import numpy as np
     import torch
 
-    from repro_torch.core import make_scheme, simulate, simulate_batch
+    from repro_torch.core import simulate_batch
     from repro_torch.core.kernel import GateKernel
     from repro_torch.kernels.gate_window import gate_window as gwk
     from repro_torch.kernels.gate_window import ref as gwr
@@ -2399,10 +2646,7 @@ def _sim(dev) -> dict:
                 exact_cells += _sim_parity(w, g, exact=True)
                 cells += 1
             rounds = got[0].rounds
-            J = len(got[0].job_done_round)
-            for k in range(SIM["parity_traces"]):
-                ref = simulate(make_scheme(name, n, J, **params), traces[k], alpha=SIM["alpha"],
-                               J=J, waitout=waitout)
+            for k, ref in enumerate(host.result()[name, waitout]):
                 if not _sim_parity(ref, got[k], exact=False):
                     fail(f"sim {name} {waitout}: trace {k} differs from the descriptor simulate")
             totals["window_stats"] += launched[0]
@@ -2446,13 +2690,17 @@ def _sim_traces():
 
 
 def _grid(dev) -> dict:
-    """m-sgc's App.-J grid (``default_grid`` at n 256: 132 candidates) over
-    ``[sim]``'s 64 traces x 44 rounds, both wait-outs, grid-fused: on the card
-    against ``fuse=False`` on the card (bit for bit) and against the fused run
-    on the CPU (the simulator's device contract); gate-window launches = the
-    CPU run's plain calls, all on the wide path.  Prints both walls, the round
-    loops, the host syncs per bucket-round and a profiled fused run's device
-    busy time per round; returns the gate-window launches of the fused runs."""
+    """m-sgc's App.-J grid (``default_grid`` at n 256: 132 candidates in 4
+    shape buckets) over ``[sim]``'s 64 traces x 44 rounds, both wait-outs,
+    grid-fused on the card: its wall, round loops, host syncs per
+    bucket-round and gate-window launches.  The checks replay the first
+    bucket (33 candidates, 2,112 cells): fused alone = its cells of the whole
+    grid's run bit for bit, = ``fuse=False`` on the card bit for bit, = the
+    fused run on the CPU under the simulator's device contract, its
+    gate-window launches = the CPU run's plain calls, all on the wide path;
+    a profiled fused run of that bucket gives the device busy time per
+    bucket-round.  Returns the gate-window launches of the whole grid's fused
+    runs."""
     import torch
 
     from repro_torch.core import batch, default_grid, grid_plan, simulate_batch
@@ -2471,96 +2719,282 @@ def _grid(dev) -> dict:
                 f"{plan['infeasible']}; {SIM['traces']} traces x {rounds} rounds")
     if plan["fallback"] or len(sizes) != 4:
         fail(f"grid: plan {plan}")
+    first = plan["buckets"][0]["specs"]
+    bucket = [specs[si] for si in first]
 
-    def run(device, **kw):
+    def run(device, which=specs, **kw):
         loops0, GateKernel.host_syncs = batch._round_loop.calls, 0
+        for k in (gwk.window_stats, gwk.buffer_stats):
+            k.launches = k.wide_launches = 0
+        gwr.window_stats.calls = gwr.buffer_stats.calls = 0
         if device != "cpu":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = simulate_batch(specs, traces, alpha=alpha, strict=False, device=device, **kw)
+        out = simulate_batch(which, traces, alpha=alpha, strict=False, device=device, **kw)
         if device != "cpu":
             torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, batch._round_loop.calls - loops0, \
-            GateKernel.host_syncs
+        launched = (gwk.window_stats.launches, gwk.buffer_stats.launches)
+        if (gwk.window_stats.wide_launches, gwk.buffer_stats.wide_launches) != launched:
+            fail(f"grid: of the launches {launched}, {gwk.window_stats.wide_launches} and "
+                 f"{gwk.buffer_stats.wide_launches} took the wide path")
+        return dict(out=out, wall=time.perf_counter() - t0,
+                    loops=batch._round_loop.calls - loops0, syncs=GateKernel.host_syncs,
+                    launches=launched, calls=(gwr.window_stats.calls, gwr.buffer_stats.calls))
 
     totals = {"window_stats": 0, "buffer_stats": 0}
     walls = {}
     for waitout in ("selective", "all"):
-        for k in (gwk.window_stats, gwk.buffer_stats):
-            k.launches = k.wide_launches = 0
-        fused, wall, loops, syncs = run(dev, waitout=waitout)
-        walls[waitout] = wall
-        launched = (gwk.window_stats.launches, gwk.buffer_stats.launches)
-        if (gwk.window_stats.wide_launches, gwk.buffer_stats.wide_launches) != launched:
-            fail(f"grid {waitout}: of the launches {launched}, {gwk.window_stats.wide_launches} "
-                 f"and {gwk.buffer_stats.wide_launches} took the wide path")
-        gwr.window_stats.calls = gwr.buffer_stats.calls = 0
-        cpu, cpu_wall, cpu_loops, _ = run("cpu", waitout=waitout)
-        plain = (gwr.window_stats.calls, gwr.buffer_stats.calls)
-        if launched != plain:
-            fail(f"grid {waitout}: kernel launches {launched} on the card, plain calls {plain} "
-                 f"on the CPU")
-        perspec, per_wall, per_loops, per_syncs = run(dev, waitout=waitout, fuse=False)
-        if (loops, cpu_loops, per_loops) != (len(sizes), len(sizes), len(specs)):
-            fail(f"grid {waitout}: round loops fused {loops}, CPU {cpu_loops}, per spec "
-                 f"{per_loops}")
+        whole = run(dev, waitout=waitout)
+        fused = run(dev, bucket, waitout=waitout)
+        walls[waitout] = fused["wall"]
+        cpu = run("cpu", bucket, waitout=waitout)
+        if fused["launches"] != cpu["calls"]:
+            fail(f"grid {waitout}: kernel launches {fused['launches']} on the card, plain "
+                 f"calls {cpu['calls']} on the CPU")
+        perspec = run(dev, bucket, waitout=waitout, fuse=False)
+        if (whole["loops"], fused["loops"], cpu["loops"], perspec["loops"]) != \
+                (len(sizes), 1, 1, len(bucket)):
+            fail(f"grid {waitout}: round loops whole {whole['loops']}, bucket fused "
+                 f"{fused['loops']}, CPU {cpu['loops']}, per spec {perspec['loops']}")
         cells = dead = exact = 0
-        for si in range(len(specs)):
+        for j, si in enumerate(first):
             for c in range(SIM["traces"]):
-                f, p, w = fused[si, 0, c], perspec[si, 0, c], cpu[si, 0, c]
-                if (f is None) != (p is None) or (f is None) != (w is None):
-                    fail(f"grid {waitout}: {specs[si]} trace {c}: dead in one run only")
+                a, f, p, w = (r["out"][i, 0, c] for r, i in ((whole, si), (fused, j),
+                                                              (perspec, j), (cpu, j)))
+                if len({x is None for x in (a, f, p, w)}) > 1:
+                    fail(f"grid {waitout}: {specs[si]} trace {c}: dead in some runs only")
                 if f is None:
                     dead += 1
                     continue
-                if not _sim_parity(p, f, exact=True):
-                    fail(f"grid {waitout}: {specs[si]} trace {c}: fused differs from "
-                         f"fuse=False on the card")
+                if not (_sim_parity(f, a, exact=True) and _sim_parity(p, f, exact=True)):
+                    fail(f"grid {waitout}: {specs[si]} trace {c}: the bucket fused differs "
+                         f"from the whole grid's run or from fuse=False on the card")
                 # bits imply the device contract, and are the cheaper check
                 same = _sim_parity(w, f, exact=True)
                 if not (same or _sim_parity(w, f, exact=False)):
                     fail(f"grid {waitout}: {specs[si]} trace {c}: the card differs from the CPU")
                 cells += 1
                 exact += same
-        totals["window_stats"] += launched[0]
-        totals["buffer_stats"] += launched[1]
-        say("grid", f"{waitout}: fused {wall * 1e3:.3f} ms on the card in {loops} round loops, "
-                    f"{syncs} host syncs ({syncs / (loops * rounds):.3f} per bucket-round); "
-                    f"fuse=False {per_wall * 1e3:.3f} ms in {per_loops} loops, {per_syncs} host "
-                    f"syncs ({per_syncs / (per_loops * rounds):.3f} per spec-round); "
-                    f"{per_wall / wall:.2f}x; CPU fused {cpu_wall * 1e3:.3f} ms; launches "
-                    f"window_stats {launched[0]}, buffer_stats {launched[1]} (= plain calls "
-                    f"on the CPU, all wide); {cells} cells bit for bit = fuse=False and = the "
-                    f"CPU under the device contract (bit for bit on {exact}), {dead} dead in "
-                    f"all three [{nvidia_smi()}]")
-    # where the device time of the fused selective run goes
+        totals["window_stats"] += whole["launches"][0]
+        totals["buffer_stats"] += whole["launches"][1]
+        say("grid", f"{waitout}: all {len(specs)} candidates fused {whole['wall'] * 1e3:.3f} ms "
+                    f"on the card in {whole['loops']} round loops, {whole['syncs']} host syncs "
+                    f"({whole['syncs'] / (whole['loops'] * rounds):.3f} per bucket-round), "
+                    f"launches window_stats {whole['launches'][0]}, buffer_stats "
+                    f"{whole['launches'][1]} (all wide); its first bucket of {len(bucket)}: "
+                    f"fused {fused['wall'] * 1e3:.3f} ms in 1 loop, fuse=False "
+                    f"{perspec['wall'] * 1e3:.3f} ms in {perspec['loops']} loops, "
+                    f"{perspec['syncs']} host syncs "
+                    f"({perspec['syncs'] / (perspec['loops'] * rounds):.3f} per spec-round), "
+                    f"{perspec['wall'] / fused['wall']:.2f}x; CPU fused "
+                    f"{cpu['wall'] * 1e3:.3f} ms; launches {fused['launches']} = plain calls on "
+                    f"the CPU; {cells} cells bit for bit = the whole grid's run and = "
+                    f"fuse=False, = the CPU under the device contract (bit for bit on {exact}), "
+                    f"{dead} dead in all runs [{nvidia_smi()}]")
+    # where the device time of the bucket's fused selective run goes
     wall_ms = walls["selective"] * 1e3
-    events = _device_events(lambda: run(dev))
+    events = _device_events(lambda: run(dev, bucket))
     busy_ms = sum(t for _, t, _ in events) / 1e3
-    bucket_rounds = len(sizes) * rounds
-    _breakdown(f"profile grid m-sgc selective, {bucket_rounds} bucket-rounds", events, wall_ms)
+    _breakdown(f"profile grid m-sgc selective, one bucket of {len(bucket)}, {rounds} rounds",
+               events, wall_ms)
     say("profile grid m-sgc selective",
-        f"per bucket-round: device busy {busy_ms / bucket_rounds:.4f} ms of "
-        f"{wall_ms / bucket_rounds:.4f} ms wall, {len(events) / bucket_rounds:.1f} device "
-        f"activities ({sum(sizes) // len(sizes) * SIM['traces']} cells a bucket)")
+        f"per bucket-round: device busy {busy_ms / rounds:.4f} ms of {wall_ms / rounds:.4f} ms "
+        f"wall, {len(events) / rounds:.1f} device activities ({len(bucket) * SIM['traces']} "
+        f"cells a bucket)")
     return totals
 
 
-def _select(dev) -> None:
+def _register_open_specs() -> list:
+    """Registers [open-specs]'s user specs in the port, as a user registers a
+    scheme (``docs/scheme_kernels.md``): m-sgc with a load-adaptive kernel,
+    m-sgc and sr-sgc with their bursty member's solver taken away, gc with a
+    per-round model written in numpy only.  Returns their names."""
+    import torch
+
+    from repro_torch.core import kernel as tk
+    from repro_torch.core import make_scheme, register_kernel, register_scheme
+    from repro_torch.core import straggler as st
+
+    class NoSolverBursty(st.BurstyModel):
+        """The bursty model without its closed-form solver: the gate checks
+        every drop count's variant."""
+
+        min_drops_batch = None
+
+    class NumpyPerRound(st.StragglerModel):
+        """At most ``s`` stragglers a round, checked in numpy only."""
+
+        def __init__(self, s):
+            self.s = s
+
+        def conforms(self, pattern):
+            return bool((pattern.sum(axis=1) <= self.s).all())
+
+        @property
+        def window(self):
+            return 1
+
+    class AdaptiveMSGC(tk.MSGCKernel):
+        """M-SGC whose load grows with each cell's pending jobs."""
+
+        name = "m-sgc-adaptive"
+
+        def round_loads(self, state, t):
+            pending = (state.done_round[:, 1:t] == 0).sum(dim=1).to(torch.float64)
+            return self.normalized_load * (1.0 + OPEN_SPECS["pending_slope"] * pending)
+
+    def renamed(base, name, params, design=None):
+        def make(n, J, seed=0, **kw):
+            sch = make_scheme(base, n, J, seed=seed, **params)
+            sch.name = name
+            if design is not None:
+                sch.design_model = design(sch)
+            return sch
+        return make
+
+    m, sr, s = SIM_PARAMS["m-sgc"], SIM_PARAMS["sr-sgc"], SIM_PARAMS["gc"]["s"]
+    specs = {
+        "m-sgc-adaptive": (renamed("m-sgc", "m-sgc-adaptive", m), AdaptiveMSGC),
+        "m-sgc-nosolver": (renamed("m-sgc", "m-sgc-nosolver", m, lambda sch: st.MixtureModel(
+            (NoSolverBursty(m["B"], m["W"], m["lam"]), sch.design_model.members[1]))),
+            tk.MSGCKernel),
+        "sr-sgc-nosolver": (renamed("sr-sgc", "sr-sgc-nosolver", sr, lambda sch: st.WindowwiseOr(
+            (NoSolverBursty(sr["B"], sr["W"], sr["lam"]), sch.design_model.members[1]),
+            sr["W"])), tk.SRSGCKernel),
+        "gc-numpy": (renamed("gc", "gc-numpy", {"s": s, "prefer_rep": False},
+                             lambda sch: NumpyPerRound(s)), tk.GCKernel),
+    }
+    for name, (factory, kernel) in specs.items():
+        register_scheme(name, factory)
+        register_kernel(name, kernel)
+    return list(specs)
+
+
+def _open_specs(dev) -> dict:
+    """[open-specs]: the lockstep engine's specs outside the paper's, over
+    [sim]'s 64 traces x 44 rounds at n 256, both wait-outs: the load-adaptive
+    m-sgc under [sim]'s alpha and a per-worker alpha, m-sgc's and sr-sgc's
+    bursty member without its solver (a gate that is not analytic: every
+    member check reaches ``gate_window.window_stats``), and gc's per-round
+    model in numpy only (the host loop of ``suffix_ok_batch``); then the
+    four beside their paper specs in one ``simulate_batch``, grid-fused
+    against ``fuse=False``.  Each card run against the CPU's under [sim]'s
+    contract, bit for bit where it is; gate-window launches = the CPU's
+    plain calls, all wide; host syncs per round, host reads, walls.
+    Returns the gate-window launches on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import batch, grid_plan, simulate_batch
+    from repro_torch.core import kernel as tk
+    from repro_torch.core.kernel import GateKernel
+    from repro_torch.core.schemes import _SCHEME_FACTORIES
+    from repro_torch.core.straggler import StragglerModel
+    from repro_torch.kernels.gate_window import gate_window as gwk
+    from repro_torch.kernels.gate_window import ref as gwr
+
+    n, rounds = SIM["n"], SIM["rounds"]
+    traces = _sim_traces()
+    alpha_w = SIM["alpha"] * (0.5 + np.random.default_rng(OPEN_SPECS["alpha_seed"]).random(n))
+    names = _register_open_specs()
+
+    def run(specs, device, alpha, waitout, **kw):
+        for k in (gwk.window_stats, gwk.buffer_stats):
+            k.launches = k.wide_launches = 0
+        gwr.window_stats.calls = gwr.buffer_stats.calls = 0
+        GateKernel.host_syncs = StragglerModel.host_reads = 0
+        loops0 = batch._round_loop.calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = simulate_batch(specs, traces, alpha=alpha, waitout=waitout, device=device, **kw)
+        torch.cuda.synchronize()
+        return dict(out=out, wall=time.perf_counter() - t0,
+                    launches=(gwk.window_stats.launches, gwk.buffer_stats.launches),
+                    wide=(gwk.window_stats.wide_launches, gwk.buffer_stats.wide_launches),
+                    calls=(gwr.window_stats.calls, gwr.buffer_stats.calls),
+                    syncs=GateKernel.host_syncs, reads=StragglerModel.host_reads,
+                    loops=batch._round_loop.calls - loops0)
+
+    def against_cpu(what, card, cpu):
+        if card["launches"] != cpu["calls"] or card["wide"] != card["launches"]:
+            fail(f"open-specs {what}: gate-window launches {card['launches']} (wide "
+                 f"{card['wide']}) on the card, plain calls {cpu['calls']} on the CPU")
+        cells = exact = 0
+        for w, g in zip(cpu["out"].ravel(), card["out"].ravel()):
+            if not _sim_parity(w, g, exact=False):
+                fail(f"open-specs {what}: cell {cells} differs between the card and the CPU")
+            cells += 1
+            exact += _sim_parity(w, g, exact=True)
+        return cells, exact
+
+    totals = {"window_stats": 0, "buffer_stats": 0}
+    cases = [("m-sgc-adaptive", f"alpha {SIM['alpha']:g}", SIM["alpha"]),
+             ("m-sgc-adaptive", "per-worker alpha", alpha_w),
+             ("m-sgc-nosolver", f"alpha {SIM['alpha']:g}", SIM["alpha"]),
+             ("sr-sgc-nosolver", f"alpha {SIM['alpha']:g}", SIM["alpha"]),
+             ("gc-numpy", f"alpha {SIM['alpha']:g}", SIM["alpha"])]
+    try:
+        for waitout in ("selective", "all"):
+            for name, what, alpha in cases:
+                gate = GateKernel(_SCHEME_FACTORIES[name](n, rounds).design_model, n, "cpu")
+                card = run([(name, {})], dev, alpha, waitout)
+                cpu = run([(name, {})], "cpu", alpha, waitout)
+                cells, exact = against_cpu(f"{name} {what} {waitout}", card, cpu)
+                totals["window_stats"] += card["launches"][0]
+                totals["buffer_stats"] += card["launches"][1]
+                got = card["out"][0, 0]
+                say("open-specs",
+                    f"{name} {what} {waitout} (gate analytic {gate.analytic}): {len(got)} cells "
+                    f"x {got[0].rounds} rounds at n {n}: card {card['wall'] * 1e3:.3f} ms, CPU "
+                    f"{cpu['wall'] * 1e3:.3f} ms; host syncs per round {card['syncs'] / rounds:.3f}"
+                    f" (CPU {cpu['syncs'] / rounds:.3f}); host reads of suffix_ok_batch "
+                    f"{card['reads']} (CPU {cpu['reads']}); gate_window launches window_stats "
+                    f"{card['launches'][0]}, buffer_stats {card['launches'][1]} (= the CPU's "
+                    f"plain calls, all wide); {cells} cells within [sim]'s contract, bit for bit "
+                    f"on {exact}; waitouts {sum(r.waitouts for r in got)}, mean total time "
+                    f"{float(np.mean([r.total_time for r in got])):.6f} s")
+        mixed = [("m-sgc-adaptive", {}), ("m-sgc", SIM_PARAMS["m-sgc"]), ("m-sgc-nosolver", {}),
+                 ("sr-sgc", SIM_PARAMS["sr-sgc"]), ("sr-sgc-nosolver", {}),
+                 ("gc", SIM_PARAMS["gc"]), ("gc-numpy", {})]
+        for waitout in ("selective", "all"):
+            plan = grid_plan(mixed, traces, waitout=waitout)
+            fused = run(mixed, dev, SIM["alpha"], waitout)
+            per_spec = run(mixed, dev, SIM["alpha"], waitout, fuse=False)
+            cpu = run(mixed, "cpu", SIM["alpha"], waitout)
+            for c, (f, p) in enumerate(zip(fused["out"].ravel(), per_spec["out"].ravel())):
+                if not _sim_parity(p, f, exact=True):
+                    fail(f"open-specs mixed {waitout}: cell {c}: fused differs from fuse=False")
+            cells, exact = against_cpu(f"mixed {waitout}", fused, cpu)
+            totals["window_stats"] += fused["launches"][0]
+            totals["buffer_stats"] += fused["launches"][1]
+            say("open-specs",
+                f"mixed {[nm for nm, _ in mixed]} {waitout}: plan buckets "
+                f"{[b['specs'] for b in plan['buckets']]}, per-spec {plan['fallback']}; fused "
+                f"{fused['wall'] * 1e3:.3f} ms in {fused['loops']} round loops, fuse=False "
+                f"{per_spec['wall'] * 1e3:.3f} ms in {per_spec['loops']}, CPU fused "
+                f"{cpu['wall'] * 1e3:.3f} ms; {cells} cells fused = fuse=False bit for bit, "
+                f"within [sim]'s contract of the CPU (bit for bit on {exact}); host syncs "
+                f"{fused['syncs']}, host reads {fused['reads']}; gate_window launches "
+                f"{fused['launches']} (= the CPU's plain calls, all wide) [{nvidia_smi()}]")
+    finally:
+        for name in names:
+            _SCHEME_FACTORIES.pop(name, None)
+            tk._KERNELS.pop(name, None)
+    if not all(totals.values()):
+        fail(f"open-specs: a gate-window kernel never launched ({totals})")
+    return totals
+
+
+def _select(dev, host) -> None:
     """App.-J selection on the card, grid-fused and with ``REPRO_GRID_FUSE=0``
-    (one round loop a candidate), against the legacy per-candidate loop."""
+    (one round loop a candidate), against the legacy per-candidate loop (from
+    ``host``, the future of :func:`_host_select`)."""
     import numpy as np
 
-    from repro_torch.core import (
-        GilbertElliotSource,
-        batch,
-        select_parameters,
-        select_parameters_legacy,
-    )
+    from repro_torch.core import batch, select_parameters
 
     n = SIM["n"]
-    src = GilbertElliotSource(n=n, seed=100, **SIM_GE)
-    probe = src.sample_delays(30)
+    probe, alpha = _select_probe()
     for name, grid in SELECT_GRIDS.items():
         got = {}
         prior = os.environ.get("REPRO_GRID_FUSE")
@@ -2569,7 +3003,7 @@ def _select(dev) -> None:
             loops0 = batch._round_loop.calls
             t0 = time.perf_counter()
             try:
-                got[fuse] = select_parameters(name, n, probe, alpha=src.alpha, grid=grid,
+                got[fuse] = select_parameters(name, n, probe, alpha=alpha, grid=grid,
                                               device=dev)
             finally:
                 if prior is None:
@@ -2578,15 +3012,14 @@ def _select(dev) -> None:
                     os.environ["REPRO_GRID_FUSE"] = prior
             got[fuse + "wall"] = time.perf_counter() - t0
             got[fuse + "loops"] = batch._round_loop.calls - loops0
-        t0 = time.perf_counter()
-        want = select_parameters_legacy(name, n, probe, alpha=src.alpha, grid=grid)
-        t_legacy = time.perf_counter() - t0
+        want, t_legacy = host.result()[name]
         fused, unfused = got["1"], got["0"]
         say("select", f"{name} over {len(grid)} candidates at n {n}: {fused.params} (load "
                       f"{fused.load:.6f}, {fused.est_time:.6f} s per job); on the card fused "
                       f"{got['1wall'] * 1e3:.3f} ms in {got['1loops']} round loops, fuse=False "
                       f"{got['0wall'] * 1e3:.3f} ms in {got['0loops']}; legacy {want.params} "
-                      f"({want.est_time:.6f} s per job) in {t_legacy * 1e3:.3f} ms")
+                      f"({want.est_time:.6f} s per job) in {t_legacy * 1e3:.3f} ms on the "
+                      f"host, beside the card's runs")
         if (fused.params, fused.load, fused.est_time) != \
                 (unfused.params, unfused.load, unfused.est_time):
             fail(f"select {name}: fused chose {fused}, fuse=False {unfused}")
@@ -2697,8 +3130,8 @@ def _scenarios(dev) -> None:
 
 
 def _multimodel(dev) -> None:
-    """``multimodel_training`` at the example's 64 workers and 4 models over 16
-    jobs: every decoded gradient of the 7 schemes within DECODE_TOL of the
+    """``multimodel_training`` at the example's 64 workers and 4 models over
+    ``MULTIMODEL["jobs"]`` jobs: every decoded gradient of the 7 schemes within DECODE_TOL of the
     full-batch one, and one ``coded_combine`` launch per encode and decode."""
     import numpy as np
 
@@ -2734,8 +3167,8 @@ def _multimodel(dev) -> None:
 
 
 def _coded_train(dev, cfg) -> None:
-    """``coded_train`` (bench_coded_train) at full qwen2-0.5b width in bf16:
-    the 7 schemes through VectorizedCodedTrainer on ge-bursty and
+    """``coded_train`` (bench_coded_train) at full qwen2-0.5b width in bf16,
+    ``cfg``'s depth (``CODED_TRAIN["layers"]``): the 7 schemes through VectorizedCodedTrainer on ge-bursty and
     replayed-waves, its three gates, exact launches per step, peak memory, and
     a profiled dc-gc step."""
     import numpy as np
@@ -2793,8 +3226,8 @@ def _coded_train(dev, cfg) -> None:
                            f"{clock:.6f} s, coded step {res.step_ms[(trace, label)]:.3f} ms "
                            f"median after a warm-up, final loss "
                            f"{res.final_loss[(trace, label)]:.4f}")
-    say("coded-train", f"qwen2-0.5b bf16, {c['models']} models, n {c['n']}, batch "
-                       f"{CODED_BATCH} x {c['seq']} tokens, {c['jobs']} jobs, trace_library(n="
+    say("coded-train", f"qwen2-0.5b bf16, {L} of 24 layers, {c['models']} models, n "
+                       f"{c['n']}, batch {CODED_BATCH} x {c['seq']} tokens, {c['jobs']} jobs, trace_library(n="
                        f"{c['n']}, rounds={c['jobs'] + 8}): {res.steps} coded steps in "
                        f"{wall:.3f} s; "
                        f"max_memory_allocated {peak} B; launches per step "
@@ -3223,7 +3656,7 @@ def _harness(dev) -> dict:
     return {"startup_s": startup}
 
 
-def _launch(dev, heads_view) -> None:
+def _launch(dev, heads_view, host) -> None:
     """[launch]: the launch tooling on the card (``repro_torch.launch``).
 
     (b) first, on meta tensors over a (1, 1) mesh of the rank-only group: the
@@ -3246,7 +3679,8 @@ def _launch(dev, heads_view) -> None:
     gate.  (c) The bf16 attention backward at the step's shape, its two
     launches' device time, beside autograd of SDPA.  (d) ``run_pair`` of
     qwen2-0.5b train_4k on both production meshes, plain and GC, on this
-    host's CPU: per-device operations, argument and collective bytes."""
+    host's CPU (``host``, the future of :func:`_host_dryruns`): per-device
+    operations, argument and collective bytes."""
     import statistics
 
     import torch
@@ -3459,18 +3893,16 @@ def _launch(dev, heads_view) -> None:
     del q, k, v, do, out, lse, qr, kr, vr, y_lib
     torch.cuda.empty_cache()
 
-    # (d) the dry-run's production pairs on this host
-    for multi_pod in (False, True):
-        for coded in (False, "gc"):
-            r = dryrun.run_pair(ARCH, "train_4k", multi_pod=multi_pod, coded=coded,
-                                verbose=False)
-            if r["status"] != "ok":
-                fail(f"{phase}: dry-run {r}")
-            say(phase, f"dry-run {ARCH} train_4k {r['mesh']} coded {coded}: operations a "
-                       f"device {r['flops_per_device']}, argument bytes "
-                       f"{r['memory']['argument_bytes']}, collective bytes "
-                       f"{r['collectives']['total_bytes']}, trace {r['lower_s']} s (counted on "
-                       f"meta tensors, torch {r['torch_version']})")
+    # (d) the dry-run's production pairs on this host (``host``: the future of
+    # _host_dryruns, run beside the card's phases)
+    for multi_pod, coded, r in host.result():
+        if r["status"] != "ok":
+            fail(f"{phase}: dry-run {r}")
+        say(phase, f"dry-run {ARCH} train_4k {r['mesh']} coded {coded}: operations a "
+                   f"device {r['flops_per_device']}, argument bytes "
+                   f"{r['memory']['argument_bytes']}, collective bytes "
+                   f"{r['collectives']['total_bytes']}, trace {r['lower_s']} s (counted on "
+                   f"meta tensors, torch {r['torch_version']}, beside the card's phases)")
     say(phase, f"phase wall {time.perf_counter() - t0:.1f} s")
 
 

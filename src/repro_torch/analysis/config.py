@@ -19,7 +19,8 @@ for one onto ``src/repro_torch``:
 
 ``staged_functions`` names the kernel and gate entry points of a lockstep
 round (the JAX package's staged functions; ``_wait_out`` is the port's
-``_admit_partial_traced``), and ``traced_params`` the identifiers that carry
+``_admit_partial_traced``, ``_wait_out_variants`` its numpy branch for a gate
+that is not analytic), and ``traced_params`` the identifiers that carry
 per-cell tensors through them.  Round indices, jobs and their validity are
 host ints in the port, so they are not among them.  Extend both when adding
 a kernel with new per-round surface.
@@ -46,6 +47,7 @@ DEFAULT_CONFIG: dict = {
             "admit_partial",
             "admit_all",
             "_wait_out",
+            "_wait_out_variants",
             "_member_ok",
             "_pending",
             "_valid",

@@ -61,10 +61,6 @@ __all__ = [
     "grid_plan",
 ]
 
-#: where the specs this engine refuses are queued (ROADMAP.md, slice queue)
-_LATER = "a later slice of the port (ROADMAP.md: the lockstep engine's open specs)"
-
-
 @dataclass(frozen=True)
 class RoundPrecompute:
     """Per-round timing quantities for one (trace, load) pair.
@@ -200,11 +196,15 @@ def simulate_lockstep(
     trace (the App-J rule).  With ``strict=False``, cells whose wait-out
     contract is violated yield ``None`` instead of raising.  ``alpha`` may
     be a scalar or a per-worker ``(n,)`` vector: worker i's round time is
-    ``trace + (load - 1/n) * alpha[i]``.
-
-    Specs this engine cannot run yet — a kernel with load-adaptive
-    ``round_loads``, or a selective gate with members lacking the analytic
-    ``min_drops_batch`` — raise ``NotImplementedError``.
+    ``trace + (load - 1/n) * alpha[i]``, the per-cell loads coming from the
+    kernel's ``round_loads``: constant for every paper scheme, so the whole
+    timing grid is one broadcast pass; a kernel that overrides it
+    (load-adaptive) gets each round's times from the state that round
+    starts from.  A selective gate whose members lack the analytic
+    ``min_drops_batch`` checks drop-count variants (``GateKernel``), and a
+    member with only the numpy ``suffix_ok`` is checked on the host
+    (``StragglerModel.suffix_ok_batch``), as in the JAX package's numpy
+    engine.
     """
     dev = resolve_device(device)
     traces = np.asarray(traces, dtype=np.float64)
@@ -225,33 +225,40 @@ def simulate_lockstep(
 
     kernel = make_kernel(scheme, dev)
     gate = GateKernel(scheme.design_model, n, dev)
-    if type(kernel).round_loads is not SchemeKernel.round_loads:
-        raise NotImplementedError(f"{name}: load-adaptive round_loads wait for {_LATER}")
-    if waitout == "selective" and not gate.analytic:
-        raise NotImplementedError(
-            f"{name}: a selective gate over models without min_drops_batch waits for {_LATER}")
     rounds = J + kernel.T
-    # the whole timing grid in one broadcast pass: (cells, rounds, n) float64
-    extra = (kernel.normalized_load - 1.0 / n) * np.asarray(alpha, dtype=np.float64)
-    times_all = (torch.as_tensor(traces[:, :rounds], device=dev)
-                 + torch.as_tensor(extra, device=dev))
-    return _assemble_results(kernel.name, scheme.normalized_load, J,
-                             *_round_loop(kernel, gate, times_all, mu, waitout), strict)
+    alpha = np.asarray(alpha, dtype=np.float64)
+    traces_dev = torch.as_tensor(traces[:, :rounds], device=dev)
+    if type(kernel).round_loads is SchemeKernel.round_loads:
+        # the whole timing grid in one broadcast pass: (cells, rounds, n) float64
+        extra = (kernel.normalized_load - 1.0 / n) * alpha
+        out = _round_loop(kernel, gate, traces_dev + torch.as_tensor(extra, device=dev), mu,
+                          waitout)
+    else:
+        out = _round_loop(kernel, gate, traces_dev, mu, waitout,
+                          load_alpha=torch.as_tensor(alpha, device=dev))
+    return _assemble_results(kernel.name, scheme.normalized_load, J, *out, strict)
 
 
-def _round_loop(kernel, gate, times_all, mu, waitout):
+def _round_loop(kernel, gate, times_all, mu, waitout, load_alpha=None):
     """The lockstep round loop over ``times_all`` (cells, rounds, n) float64 on
     the kernel's device: the mu-rule, the wait-out gate and ``kernel.step``
     for every cell of a round at once.  Returns ``(rt, done_round, dead,
     waitouts, history)`` on the host, read back once.  ``calls`` counts the
-    loops run, as a kernel wrapper counts its launches."""
+    loops run, as a kernel wrapper counts its launches.
+
+    ``times_all`` holds the load-adjusted times of a constant-load kernel.
+    For a load-adaptive one it holds the bare traces and ``load_alpha`` the
+    (scalar or ``(n,)``) alpha: each round's times are then ``traces[:, k] +
+    (round_loads - 1/n)[:, None] * alpha``, the JAX package's numpy
+    expressions in its order, from the state before that round's ``step``."""
     _round_loop.calls += 1
-    cells, rounds, _ = times_all.shape
-    kappa_all = times_all.amin(dim=2)
-    cutoff_all = (1.0 + mu) * kappa_all
-    tmax_all = times_all.amax(dim=2)
-    cand_all = times_all > cutoff_all[..., None]
-    any_all = cand_all.any(dim=2)
+    cells, rounds, n = times_all.shape
+    if load_alpha is None:
+        kappa_all = times_all.amin(dim=2)
+        cutoff_all = (1.0 + mu) * kappa_all
+        tmax_all = times_all.amax(dim=2)
+        cand_all = times_all > cutoff_all[..., None]
+        any_all = cand_all.any(dim=2)
 
     state = kernel.init_state(cells)
     gs = gate.init_state(cells)
@@ -259,8 +266,19 @@ def _round_loop(kernel, gate, times_all, mu, waitout):
     waitouts = torch.zeros(cells, dtype=torch.int64, device=times_all.device)
     for t in range(1, rounds + 1):
         k = t - 1
-        times, cutoff, tmax = times_all[:, k], cutoff_all[:, k], tmax_all[:, k]
-        cand, any_cand = cand_all[:, k], any_all[:, k]
+        if load_alpha is None:
+            times, cutoff, tmax = times_all[:, k], cutoff_all[:, k], tmax_all[:, k]
+            cand, any_cand = cand_all[:, k], any_all[:, k]
+        else:
+            # (cells, 1) loads x scalar-or-(n,) alpha; the arithmetic makes a
+            # new tensor, so step's in-place updates cannot reach it
+            loads = kernel.round_loads(state, t).to(torch.float64)
+            times = times_all[:, k] + (loads - 1.0 / n)[:, None] * load_alpha
+            kappa = times.amin(dim=1)
+            cutoff = (1.0 + mu) * kappa
+            tmax = times.amax(dim=1)
+            cand = times > cutoff[:, None]
+            any_cand = cand.any(dim=1)
         base = torch.minimum(cutoff, tmax)
         if waitout == "selective":
             gs, eff, waited = gate.admit_partial(gs, cand, times, any_cand)

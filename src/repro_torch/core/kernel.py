@@ -27,7 +27,11 @@ to the host: round indices are host ints, so only data-free branches remain.
 windows and alive flags carry a leading cells axis.  Its selective wait-out is
 the JAX package's branch-free greedy form (``_admit_partial_traced``), with a
 Python loop for ``lax.while_loop``: one host check per round and one per
-greedy iteration, the same code on the CPU and on the card.
+greedy iteration, the same code on the CPU and on the card.  A gate with a
+member that lacks the analytic ``min_drops_batch`` takes the JAX package's
+numpy branch instead: every "k cheapest dropped" variant checked at once,
+the first admissible k taken, with no monotonicity assumed (one more host
+read a round that waits anything out).
 
 The clustered baselines' kernels, ``DCGCKernel`` and ``SBGCKernel``, check
 decodability per cluster with the same cluster helpers as their design
@@ -596,8 +600,8 @@ class GateKernel:
         self.members = list(model.members) if isinstance(model, MixtureModel) else [model]
         self.windows = [m.window for m in self.members]
         self.n = n
-        # every paper model has a closed-form minimal-drop solver and
-        # vectorized member checks; the selective wait-out needs them
+        # every paper model has a closed-form minimal-drop solver; the
+        # selective wait-out checks drop-count variants for the others
         self.analytic = all(self._has_solver(m) for m in self.members)
         self.full = max(self.windows)
 
@@ -615,9 +619,10 @@ class GateKernel:
         )
 
     @staticmethod
-    def _host_check(flag: torch.Tensor) -> bool:
+    def _host_check(value: torch.Tensor):
+        """Read a one-element tensor back to the host (a Python bool or int)."""
         GateKernel.host_syncs += 1
-        return bool(flag)
+        return value.item()
 
     def _tails(self, gs: GateState) -> list:
         """Each member's committed rows inside its window: views of the
@@ -653,29 +658,34 @@ class GateKernel:
         candidate set was empty to begin with (their alive flags stay
         untouched, like ``force``).
 
+        A gate that is not :attr:`analytic` resolves the same cells by the
+        variant check of :meth:`_wait_out_variants`.
+
         Returns ``(gs, effective (cells, n), waited (cells, n))``; commits
         one row for every cell.
         """
-        if not self.analytic:
-            raise NotImplementedError(
-                "the selective wait-out needs gate members with vectorized checks "
-                "(min_drops_batch); other models wait for a later slice of the port"
-            )
         tails = self._tails(gs)
-        # buffer-only statistics (the gate_window buffer kernel) are paid
-        # once per round; every greedy iteration is a candidate-only check
-        fns = [m.admit_fn_batch(tail) for m, tail in zip(self.members, tails)]
+        if self.analytic:
+            # buffer-only statistics (the gate_window buffer kernel) are paid
+            # once per round; every greedy iteration is a candidate-only check
+            fns = [m.admit_fn_batch(tail) for m, tail in zip(self.members, tails)]
 
-        def member_ok(cand):
-            return torch.stack([gs.alive[:, i] & f(cand) for i, f in enumerate(fns)], dim=1)
+            def member_ok(cand):
+                return torch.stack([gs.alive[:, i] & f(cand) for i, f in enumerate(fns)], dim=1)
 
-        mok = member_ok(candidate)
+            mok = member_ok(candidate)
+        else:
+            mok = self._member_ok(tails, gs.alive, candidate)
         resolved = mok.any(dim=1)
         cand, waited = candidate, torch.zeros_like(candidate)
         # repro: allow[tracer-safety]: the gate's one sanctioned read a round (GateKernel.host_syncs): does any cell have anything to wait out
         if self._host_check((~resolved & candidate.any(dim=1)).any()):
-            cand, waited, mok, resolved = self._wait_out(
-                gs, tails, member_ok, candidate, cost, mok, resolved)
+            if self.analytic:
+                cand, waited, mok, resolved = self._wait_out(
+                    gs, tails, member_ok, candidate, cost, mok, resolved)
+            else:
+                cand, waited, mok, resolved = self._wait_out_variants(
+                    gs, tails, candidate, cost, mok, resolved)
         # alive narrows only where a non-empty candidate was admitted;
         # emptied-out cells commit without touching alive (== force)
         gs.alive = torch.where((resolved & any_cand)[:, None], mok, gs.alive)
@@ -726,6 +736,46 @@ class GateKernel:
             mok = torch.where(newly[:, None], now_ok, mok)
             resolved = resolved | newly
         return cand, waited, mok, resolved
+
+    def _wait_out_variants(self, gs, tails, candidate, cost, mok, resolved):
+        """The wait-out of a gate with a member that is not analytic (the
+        JAX package's numpy branch for externally registered models): for
+        every unresolved cell, each "k cheapest dropped" variant, k = 1 ..
+        count - 1 in the stable ascending-cost drop order, is checked by every
+        member's ``suffix_ok_batch`` in one call, and the first admissible k
+        is taken.  Nothing assumes admissibility monotone in k, so neither
+        the greedy loop's empty-out shortcut nor its lower-bound chunks
+        apply.  A cell with no admissible variant waits out every candidate
+        and commits without a check.  Returns ``(cand, waited, final member
+        verdicts, resolved)``."""
+        n, cells = self.n, candidate.shape[0]
+        dev = candidate.device
+        active = ~resolved & candidate.any(dim=1)
+        count = candidate.sum(dim=1)
+        # rank candidates by drop order; non-candidates sort last
+        order = torch.argsort(torch.where(candidate, cost, math.inf), dim=1, stable=True)
+        rank = torch.empty_like(order).scatter_(
+            1, order, torch.arange(n, device=dev).expand(cells, n).contiguous())
+        # repro: allow[tracer-safety]: the variant check's read a round that waits anything out (GateKernel.host_syncs): how many variants the largest unresolved candidate set has
+        K = int(self._host_check(torch.where(active, count, 0).amax()))
+        ks = torch.arange(1, K + 1, device=dev)
+        variants = candidate[:, None, :] & (rank[:, None, :] >= ks[None, :, None])
+        flat = variants.reshape(cells * K, n)
+        cols = []
+        for i, (m, tail) in enumerate(zip(self.members, tails)):
+            win = (torch.cat([tail.repeat_interleave(K, dim=0), flat[:, None]], dim=1)
+                   if tail.shape[1] else flat[:, None])
+            cols.append(gs.alive[:, i, None] & m.suffix_ok_batch(win).reshape(cells, K))
+        mok_k = torch.stack(cols, dim=2)                     # (cells, K, members)
+        valid = mok_k.any(dim=2) & (ks[None, :] < count[:, None])
+        has = active & valid.any(dim=1)
+        # first admissible k (argmax of a bool needs an int cast)
+        kstar = torch.where(has, valid.to(torch.uint8).argmax(dim=1) + 1, count)
+        sel = mok_k[torch.arange(cells, device=dev), (kstar - 1).clamp(0, K - 1)]
+        keep = rank >= kstar[:, None]
+        cand = torch.where(active[:, None], candidate & keep, candidate)
+        waited = active[:, None] & candidate & ~keep
+        return cand, waited, torch.where(has[:, None], sel, mok), resolved | has
 
     def admit_all(self, gs: GateState, candidate, any_cand):
         """Batched App-J all-or-nothing admission: per cell, admit the

@@ -207,8 +207,10 @@ class StragglerModel:
     """Interface: validate a full pattern or check incremental conformance.
 
     The ``*_batch`` hooks are the lockstep gate's (``core.kernel.GateKernel``):
-    they take torch tensors with a leading cells axis, on the CPU or the card,
-    and never read them back to the host.
+    they take torch tensors with a leading cells axis, on the CPU or the card.
+    The models of this module never read them back to the host; a model that
+    defines only the numpy ``suffix_ok`` is checked through the host loop of
+    the default :meth:`suffix_ok_batch`.
     """
 
     #: True when the model's verdict is unchanged by dropping all-clear
@@ -226,10 +228,11 @@ class StragglerModel:
     #: smallest k such that dropping the k cheapest candidates makes
     #: the window admissible (``n + 1`` when impossible).  Soundness
     #: requires admissibility to be MONOTONE in the drop prefix, which
-    #: holds for any model closed under removing stragglers.  The gate
-    #: runs the selective wait-out only over models that define it (it
-    #: marks the vectorized members); its greedy loop itself calls
-    #: :meth:`admit_fn_batch` and :meth:`drops_lower_bound_fn_batch`.
+    #: holds for any model closed under removing stragglers.  When every
+    #: member defines it the gate runs its greedy loop (which calls
+    #: :meth:`admit_fn_batch` and :meth:`drops_lower_bound_fn_batch`);
+    #: otherwise it checks every drop count's variant with
+    #: :meth:`suffix_ok_batch` and assumes no monotonicity.
     min_drops_batch = None
 
     def conforms(self, pattern: np.ndarray) -> bool:
@@ -271,21 +274,29 @@ class StragglerModel:
         """
         return self.conforms(win)
 
+    #: calls of the host-loop :meth:`suffix_ok_batch` over all models: each
+    #: reads its window to the host once (from the card: one device sync)
+    host_reads = 0
+
     def suffix_ok_batch(self, win):
         """Lockstep variant of ``suffix_ok``: ``win`` is a ``(cells, T, n)``
         bool tensor (one trailing window per grid cell, last row = each
-        cell's candidate round); returns a ``(cells,)`` bool tensor.
+        cell's candidate round); returns a ``(cells,)`` bool tensor on
+        ``win.device``.
 
         Every model in this module overrides it with one vectorized pass,
         so the batched gate costs one check per member per round regardless
-        of the grid size.  A model without one raises here instead of being
-        checked cell by cell on the host.
+        of the grid size.  This default is the JAX package's semantics for a
+        model whose author wrote only the numpy ``suffix_ok``: it copies the
+        window to the host once a call (counted in
+        ``StragglerModel.host_reads``) and loops over the cells there.  It
+        is not a device path: on the card every call stalls the host on the
+        device, and the model's own numpy runs on the CPU.
         """
-        raise NotImplementedError(
-            f"{type(self).__name__} has no vectorized suffix_ok_batch: the lockstep gate over "
-            "such a model waits for a later slice of the port (ROADMAP.md: the lockstep "
-            "engine's open specs)"
-        )
+        StragglerModel.host_reads += 1
+        rows = win.cpu().numpy()
+        return torch.as_tensor(np.array([self.suffix_ok(w) for w in rows], dtype=bool),
+                               device=win.device)
 
     def admits_round(self, history: np.ndarray, candidate: np.ndarray) -> bool:
         """Would appending ``candidate`` (bool[n]) keep the pattern valid?

@@ -328,22 +328,65 @@ def unstageable():
         tk._KERNELS.pop(name, None)
 
 
-def test_unstageable_specs_go_to_the_per_spec_path(unstageable):
+def test_unstageable_specs_go_to_the_per_spec_path(unstageable, rc, parity):
     """The planner routes a gate without ``min_drops_batch`` (selective) and
-    load-adaptive loads to the per-spec path, which raises for these open
-    specs with or without fusion; the stageable spec beside them still
-    fuses."""
+    load-adaptive loads to the per-spec path, which runs them as the
+    reference's numpy engine does, with or without fusion; the stageable spec
+    beside them still fuses."""
+    from repro.core import kernel as rk
+    from repro.core import straggler as rst
+    from repro.core.schemes import _SCHEME_FACTORIES as R_FACTORIES
+
+    class RefOddModel(rst.StragglerModel):
+        def conforms(self, pattern):
+            return bool(pattern.sum() % 2 == 0) or not pattern.any()
+
+        def suffix_ok(self, win):
+            return not win.any()
+
+        @property
+        def window(self):
+            return 1
+
+    class RefLoadAdaptiveKernel(rk.UncodedKernel):
+        name = "load-adaptive-fused"
+
+        def round_loads(self, state, t):
+            return super().round_loads(state, t) * (1 + t % 2)
+
+    def odd(n, J, **kw):
+        sch = rc.NoCodingScheme(n, J)
+        sch.name, sch.design_model = "odd-gate-fused", RefOddModel()
+        return sch
+
+    def adaptive(n, J, **kw):
+        sch = rc.NoCodingScheme(n, J)
+        sch.name = "load-adaptive-fused"
+        return sch
+
+    rc.register_scheme("odd-gate-fused", odd)
+    rk.register_kernel("odd-gate-fused", rk.UncodedKernel)
+    rc.register_scheme("load-adaptive-fused", adaptive)
+    rk.register_kernel("load-adaptive-fused", RefLoadAdaptiveKernel)
     n = 12
     traces = _traces(n, 12, 2, seed0=70)
     specs = [("odd-gate-fused", {}), ("load-adaptive-fused", {}), ("gc", {"s": 3})]
-    plan = tc.grid_plan(specs, traces)
-    assert plan["fallback"] == [0, 1] and [b["specs"] for b in plan["buckets"]] == [[2]]
-    assert tc.grid_plan(specs, traces, waitout="all")["fallback"] == [1]
-    for fuse in (True, False):
-        with pytest.raises(NotImplementedError, match="min_drops_batch"):
-            tc.simulate_batch(specs[:1], traces, device=CPU, fuse=fuse)
-        with pytest.raises(NotImplementedError, match="round_loads"):
-            tc.simulate_batch(specs[1:], traces, device=CPU, fuse=fuse)
+    try:
+        plan = tc.grid_plan(specs, traces)
+        assert plan == rc.grid_plan(specs, traces)
+        assert plan["fallback"] == [0, 1] and [b["specs"] for b in plan["buckets"]] == [[2]]
+        assert tc.grid_plan(specs, traces, waitout="all")["fallback"] == [1]
+        for waitout in ("selective", "all"):
+            want = rc.simulate_batch(specs, traces, alpha=6.0, waitout=waitout)
+            fused, perspec = (tc.simulate_batch(specs, traces, alpha=6.0, waitout=waitout,
+                                                device=CPU, fuse=fuse) for fuse in (True, False))
+            for w, f, p in zip(want.ravel(), fused.ravel(), perspec.ravel()):
+                parity(w, f, exact=True)
+                assert _same(p, f)
+    finally:
+        for name in ("odd-gate-fused", "load-adaptive-fused"):
+            R_FACTORIES.pop(name, None)
+            rk._KERNELS.pop(name, None)
 
 
 # -- per-cell thresholds in the models' hooks ---------------------------------------------

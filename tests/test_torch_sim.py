@@ -426,7 +426,7 @@ def test_run_adaptive_matches_the_reference():
     assert all(np.isfinite(got[3].losses[m]).all() for m in range(4))
 
 
-# -- what the engine refuses ---------------------------------------------------------
+# -- specs outside the paper's: load-adaptive loads, gates without solvers --------------
 
 
 class _LoadAdaptiveScheme(tc.NoCodingScheme):
@@ -451,27 +451,60 @@ class _HostOnlyModel(tst.StragglerModel):
         return 1
 
 
-def test_unstageable_specs_raise(monkeypatch):
+def test_unstageable_specs_raise(rc, parity, monkeypatch):
+    """Load-adaptive loads and a model with only the numpy ``suffix_ok``
+    (selective and all-or-nothing) run as the reference's numpy engine runs
+    them, bit for bit; a scheme without a lockstep kernel still refuses the
+    card."""
+    from repro.core import kernel as rk
+    from repro.core import straggler as rst
+    from repro.core.schemes import _SCHEME_FACTORIES as R_FACTORIES
+
+    class RefLoadAdaptiveScheme(rc.NoCodingScheme):
+        name = "load-adaptive"
+
+    class RefLoadAdaptiveKernel(rk.UncodedKernel):
+        name = "load-adaptive"
+
+        def round_loads(self, state, t):
+            return super().round_loads(state, t) * (1 + t % 2)
+
+    class RefHostOnlyModel(rst.StragglerModel):
+        def conforms(self, pattern):
+            return bool((pattern.sum(axis=1) <= 1).all())
+
+        @property
+        def window(self):
+            return 1
+
+    def host_only(pkg, model):
+        def make(n, J, **kw):
+            sch = pkg.GCScheme(n, 1, J, prefer_rep=False)
+            sch.name, sch.design_model = "host-only", model
+            return sch
+        return make
+
     n = 8
     traces = _traces(n, 10, 2, seed0=3)
     tc.register_scheme("load-adaptive", lambda n, J, **kw: _LoadAdaptiveScheme(n, J))
     tc.register_kernel("load-adaptive", _LoadAdaptiveKernel)
-
-    def host_only(n, J, **kw):
-        sch = tc.GCScheme(n, 1, J, prefer_rep=False)
-        sch.name, sch.design_model = "host-only", _HostOnlyModel()
-        return sch
-
-    tc.register_scheme("host-only", host_only)
+    rc.register_scheme("load-adaptive", lambda n, J, **kw: RefLoadAdaptiveScheme(n, J))
+    rk.register_kernel("load-adaptive", RefLoadAdaptiveKernel)
+    tc.register_scheme("host-only", host_only(tc, _HostOnlyModel()))
     tc.register_kernel("host-only", tk.GCKernel)
+    rc.register_scheme("host-only", host_only(rc, RefHostOnlyModel()))
+    rk.register_kernel("host-only", rk.GCKernel)
     try:
-        with pytest.raises(NotImplementedError, match="round_loads"):
-            tc.simulate_batch([("load-adaptive", {})], traces, device=CPU)
-        with pytest.raises(NotImplementedError, match="min_drops_batch"):
-            tc.simulate_lockstep("host-only", {}, traces, device=CPU)
-        # nor does the all-or-nothing gate check such a model cell by cell on the host
-        with pytest.raises(NotImplementedError, match="suffix_ok_batch"):
-            tc.simulate_lockstep("host-only", {}, traces, waitout="all", device=CPU)
+        runs = [(tc.simulate_batch, rc.simulate_batch, [("load-adaptive", {})], "selective"),
+                *[(tc.simulate_lockstep, rc.simulate_lockstep, ("host-only", {}), w)
+                  for w in ("selective", "all")]]
+        for port, ref, spec, waitout in runs:
+            args = spec if isinstance(spec, tuple) else (spec,)
+            got = np.ravel(port(*args, traces, waitout=waitout, device=CPU))
+            want = np.ravel(ref(*args, traces, waitout=waitout))
+            assert len(got) == len(want) == 2
+            for w, g in zip(want, got):
+                parity(w, g, exact=True)
         # a scheme without a lockstep kernel runs on the host only when asked
         tc.register_scheme("no-kernel", lambda n, J, **kw: tc.NoCodingScheme(n, J))
         monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -480,7 +513,9 @@ def test_unstageable_specs_raise(monkeypatch):
     finally:
         for name in ("load-adaptive", "host-only", "no-kernel"):
             T_FACTORIES.pop(name, None)
+            R_FACTORIES.pop(name, None)
             tk._KERNELS.pop(name, None)
+            rk._KERNELS.pop(name, None)
 
 
 def test_entry_points_run_on_the_card_unless_asked(monkeypatch):
