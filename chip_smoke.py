@@ -4425,7 +4425,7 @@ def _profile_ssd_chunked(dev) -> dict:
     """One full-width mamba2-1.3b block's prefill (``ssm_apply`` with its
     cache, bf16, [slice-ssm]'s 8 x 500 tokens), profiled.  ``ssd_chunked``
     and ``ssm_apply`` name each pass with a profiler range (``ssd.*``,
-    ``models/ssm.py:_span``); every device activity is attributed to the
+    ``repro_torch/tracing.py:span``); every device activity is attributed to the
     innermost range around the host call that launched it, and the rest of
     the block to ``ssm_apply``.  Prints device ms and launches per range and
     names the non-vectorised ``elementwise_kernel`` launches; returns
@@ -4668,7 +4668,7 @@ def _device_events(fn, span=None):
     loss: SPINS before and after a 50 ms pause, and SPINS after fn.  The
     spins are left out of the result and counted in ``SPIN_COUNTS``.  With
     ``span``, host calls are traced too, and an activity launched inside a
-    profiler range of that name (``models/layers.py:_span``) has ``span`` as
+    profiler range of that name (``repro_torch/tracing.py:span``) has ``span`` as
     its third field; every other activity has None there."""
     import bisect
 

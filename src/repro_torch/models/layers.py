@@ -23,17 +23,9 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.kernels.rmsnorm import ref as rn_ref
+from repro_torch.tracing import span
 
 NEG_INF = -1e30
-
-
-def _span(name: str):
-    """A profiler range named ``name`` (chip_smoke.py's profiles read them:
-    the passes of the chunked scan, ``ssd.*``, and each ``moe`` layer); a null
-    context, which records nothing, when no profiler runs."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 # -- init helpers -------------------------------------------------------------
@@ -387,10 +379,10 @@ def moe_apply(p, x, cfg, *, capacity_factor: float = 1.25, group_size: int = 102
     router, sorts, gathers, combine, aux and shared experts, and 5 for each
     expert that received a row (gate, up and down products, silu, product):
     at qwen2-moe-a2.7b's 8 x 500 prefill all 60 experts, in a decode step of
-    8 tokens about 21.  The layer runs in a profiler range named ``moe``
-    (``_span``), which chip_smoke.py's profiles read.
+    8 tokens about 21.  The layer runs in the span ``moe``
+    (``repro_torch.tracing.span``), which chip_smoke.py's profiles read.
     """
-    with _span("moe"):
+    with span("moe"):
         b, s, d = x.shape
         E, K = cfg.num_experts, cfg.num_experts_per_tok
         T = b * s

@@ -24,8 +24,9 @@ import torch.nn.functional as F
 from repro_torch.dtensor import is_dtensor, local_shards
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.tracing import span
 
-from .layers import _span, dense_init, init_device, rmsnorm_apply, rmsnorm_init
+from .layers import dense_init, init_device, rmsnorm_apply, rmsnorm_init
 
 #: parameters kept in f32 whatever the model dtype (``src/repro/models/ssm.py:36-38``)
 F32_PARAMS = ("A_log", "D", "dt_bias")
@@ -79,7 +80,7 @@ def _chunk_inputs(x, dt, A, B, C, chunk: int):
     Q = min(chunk, s)
     pad = (-s) % Q
     if pad:  # the padded tail has dt == 0: it neither adds to nor decays the state
-        with _span("ssd.pad"):
+        with span("ssd.pad"):
             x = F.pad(x, (0, 0, 0, 0, 0, pad))
             dt = F.pad(dt, (0, 0, 0, pad))
             B = F.pad(B, (0, 0, 0, pad))
@@ -91,19 +92,19 @@ def _chunk_inputs(x, dt, A, B, C, chunk: int):
     Bc = B.reshape(b, nc, Q, st)
     Cc = C.reshape(b, nc, Q, st)
 
-    with _span("ssd.cum"):
+    with span("ssd.cum"):
         dA = dtc * A                                  # (b, nc, Q, nh) <= 0
         cum = torch.cumsum(dA, dim=2)                 # within-chunk cumsum
         seg_end = cum[:, :, -1, :]                    # total decay per chunk
 
     # chunk-final states: h_c = sum_u exp(seg_end - cum_u) dt_u B_u x_u^T
-    with _span("ssd.contrib"):
+    with span("ssd.contrib"):
         state_decay = torch.exp(seg_end[:, :, None, :] - cum)       # (b, nc, Q, nh)
         contrib = torch.einsum("bcqnh,bcqs->bcnhs", xc.float() * (state_decay * dtc)[..., None],
                                Bc.float())                           # (b, nc, nh, hd, st)
 
     # inter-chunk recurrence over nc: the state entering each chunk
-    with _span("ssd.recurrence"):
+    with span("ssd.recurrence"):
         h = torch.zeros((b, nh, hd, st), dtype=torch.float32, device=x.device)
         h_prev = []
         for c in range(nc):
@@ -143,7 +144,7 @@ def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, plain: bool = False,
     xc, dtc, cum, Bc, Cc, h_prev, h = _chunk_inputs(x, dt, A, B, C, chunk)
     # y[t] = y_intra[t] + C_t . exp(cum_t) h_prev + D x_t, with
     # y_intra[t] = C_t . sum_{u<=t} exp(cum_t - cum_u) dt_u B_u x_u
-    with _span("ssd.chunk_scan"):
+    with span("ssd.chunk_scan"):
         if plain:
             y = ssd_ref.ssd_chunk_scan(xc, dtc, cum, Bc, Cc, h_prev, D, s, out_dtype)
         else:

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.dtensor import is_dtensor, local_shards, placements, vocab_nll
+from repro_torch.tracing import span
 
 from . import ssm as ssm_mod
 from .config import ModelConfig
@@ -223,27 +224,33 @@ def _whole_seq(x, cfg: ModelConfig):
 
 
 def _layer(lp, cfg, x, *, plain, layer=0, segment=None):
-    """One attention block: (x, aux, k, v)."""
-    x = _act_constraint(x, cfg)
-    h, (k, v) = attention_apply(
-        lp["attn"], _whole_seq(rmsnorm_apply(lp["norm1"], x, plain=plain), cfg), cfg,
-        plain=plain)
-    x = x + _act_constraint(h, cfg)
-    h, aux = _ffn(lp, cfg, _whole_seq(rmsnorm_apply(lp["norm2"], x, plain=plain), cfg),
-                  layer=layer, segment=segment)
-    return x + _act_constraint(h, cfg), aux, k, v
+    """One attention block: (x, aux, k, v); its attention and its
+    feed-forward, each with its norm and residual, in the spans
+    ``model.attention`` and ``model.mlp``."""
+    with span("model.attention"):
+        x = _act_constraint(x, cfg)
+        h, (k, v) = attention_apply(
+            lp["attn"], _whole_seq(rmsnorm_apply(lp["norm1"], x, plain=plain), cfg), cfg,
+            plain=plain)
+        x = x + _act_constraint(h, cfg)
+    with span("model.mlp"):
+        h, aux = _ffn(lp, cfg, _whole_seq(rmsnorm_apply(lp["norm2"], x, plain=plain), cfg),
+                      layer=layer, segment=segment)
+        return x + _act_constraint(h, cfg), aux, k, v
 
 
 def _ssm_layer(lp, cfg, x, *, plain, return_cache=False):
-    """x + ssm(norm1(x)); with ``return_cache`` also (state, conv_buf)."""
-    x = _act_constraint(x, cfg)
-    out = ssm_mod.ssm_apply(lp["ssm"], _whole_seq(rmsnorm_apply(lp["norm1"], x, plain=plain),
-                                                  cfg), cfg,
-                            return_cache=return_cache, plain=plain)
-    if return_cache:
-        y, state, conv = out
-        return x + _act_constraint(y, cfg), state, conv
-    return x + _act_constraint(out, cfg)
+    """x + ssm(norm1(x)), in the span ``model.ssm``; with ``return_cache``
+    also (state, conv_buf)."""
+    with span("model.ssm"):
+        x = _act_constraint(x, cfg)
+        out = ssm_mod.ssm_apply(lp["ssm"], _whole_seq(rmsnorm_apply(lp["norm1"], x,
+                                                                    plain=plain), cfg), cfg,
+                                return_cache=return_cache, plain=plain)
+        if return_cache:
+            y, state, conv = out
+            return x + _act_constraint(y, cfg), state, conv
+        return x + _act_constraint(out, cfg)
 
 
 # the products whose outputs the "dots" policy keeps (``x @ w`` and the plain
@@ -323,31 +330,35 @@ def forward(params, cfg: ModelConfig, batch, *, plain: bool = False,
     ``segment``: the tokens of one independent segment of the batch (a coded
     chunk's sequences, consecutive in the batch), within which a moe layer
     takes its capacity groups (``layers.moe_apply``); None, the whole batch.
-    Other families do not read it."""
+    Other families do not read it.  The final norm and the head product run
+    in the span ``model.head``."""
     x, aux = _stack_forward(params, cfg, embed_inputs(params, cfg, batch), plain=plain,
                             segment=segment)
-    x = _whole_seq(rmsnorm_apply(params["final_norm"], x, plain=plain), cfg)
-    return x @ _head(params, cfg), torch.zeros((), device=x.device) if aux is None else aux
+    with span("model.head"):
+        x = _whole_seq(rmsnorm_apply(params["final_norm"], x, plain=plain), cfg)
+        logits = x @ _head(params, cfg)
+    return logits, torch.zeros((), device=x.device) if aux is None else aux
 
 
 def token_nll(params, cfg: ModelConfig, batch, *, plain: bool = False,
               segment: int | None = None):
     """(per-token f32 NLL, aux): next-token (b, s-1) for causal LMs, (b, s)
     otherwise; a vlm's labels cover its text only, so its NLL is the last
-    text - 1 positions'.  Log-softmax in f32 whatever the model dtype.
-    ``segment``: see ``forward``."""
+    text - 1 positions'.  Log-softmax in f32 whatever the model dtype, in the
+    span ``model.head``.  ``segment``: see ``forward``."""
     logits, aux = forward(params, cfg, batch, plain=plain, segment=segment)
-    labels = batch["labels"]
-    if cfg.causal:
-        logits, labels = logits[:, :-1], labels[:, 1:]
-    if cfg.frontend == "vision_stub":
-        logits = logits[:, -labels.shape[1]:]
-    logits, target = logits.float().flatten(0, -2), labels.flatten().long()
-    if is_dtensor(logits):
-        nll = vocab_nll(logits, target)
-    else:   # -logp[label], as nll_loss takes it
-        nll = F.nll_loss(torch.log_softmax(logits, dim=-1), target, reduction="none")
-    return nll.view(labels.shape), aux
+    with span("model.head"):
+        labels = batch["labels"]
+        if cfg.causal:
+            logits, labels = logits[:, :-1], labels[:, 1:]
+        if cfg.frontend == "vision_stub":
+            logits = logits[:, -labels.shape[1]:]
+        logits, target = logits.float().flatten(0, -2), labels.flatten().long()
+        if is_dtensor(logits):
+            nll = vocab_nll(logits, target)
+        else:   # -logp[label], as nll_loss takes it
+            nll = F.nll_loss(torch.log_softmax(logits, dim=-1), target, reduction="none")
+        return nll.view(labels.shape), aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch, *, aux_weight: float = 0.01,

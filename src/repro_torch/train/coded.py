@@ -38,6 +38,7 @@ from repro_torch.dtensor import is_dtensor, placements
 from repro_torch.models import decode_step, init_params, loss_fn, token_nll
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.tracing import span
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 
@@ -48,18 +49,22 @@ def value_and_grad(fn, params):
     caller's tensors are neither copied nor marked as requiring grad.  A
     DTensor value comes back replicated.  A
     leaf that ``fn`` does not use gets a zero gradient, as under ``jax.grad``
-    (hubert's token embedding: its batch is frames).
+    (hubert's token embedding: its batch is frames).  ``fn`` runs in the span
+    ``step.forward``, its gradient in ``step.backward``.
     """
     leaves, spec = tree_flatten(params)
     with torch.enable_grad():
         xs = [p.detach().requires_grad_(True) for p in leaves]
-        value = fn(tree_unflatten(spec, xs))
-        if is_dtensor(value):
-            # a DTensor loss is made whole on every rank first, so that its
-            # gradient starts whole: a pending mean's would stay a pending
-            # mean, which some torch versions cannot add to a pending sum
-            value = value.redistribute(value.device_mesh, placements(value.device_mesh, ()))
-        grads = torch.autograd.grad(value, xs, materialize_grads=True)
+        with span("step.forward"):
+            value = fn(tree_unflatten(spec, xs))
+            if is_dtensor(value):
+                # a DTensor loss is made whole on every rank first, so that its
+                # gradient starts whole: a pending mean's would stay a pending
+                # mean, which some torch versions cannot add to a pending sum
+                value = value.redistribute(value.device_mesh,
+                                           placements(value.device_mesh, ()))
+        with span("step.backward"):
+            grads = torch.autograd.grad(value, xs, materialize_grads=True)
     return value.detach(), tree_unflatten(spec, list(grads))
 
 
@@ -68,8 +73,9 @@ def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, weight_decay: float =
 
     def step(params, opt_state, batch):
         loss, grads = value_and_grad(lambda p: loss_fn(p, cfg, batch), params)
-        params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
-                                         weight_decay=weight_decay)
+        with span("step.optimizer"):
+            params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
+                                             weight_decay=weight_decay)
         return params, opt_state, {"loss": loss}
 
     return step
@@ -93,13 +99,15 @@ def coded_loss(params, cfg: ModelConfig, coded_batch, weights, num_chunks: int, 
     chunk of ``chunk_bs`` sequences is one segment of the forward (a moe
     layer's capacity groups stay within it).  The grid and the label length
     come from ``labels``: text tokens for a vlm (after its ``prefix_len``
-    patch embeddings), frames for audio."""
+    patch embeddings), frames for audio.  The weighting runs in the span
+    ``model.head``, after the NLL's."""
     n, slots, cb, seq = coded_batch["labels"].shape[:4]
     flat = {k: v.reshape(n * slots * cb, *v.shape[3:]) for k, v in coded_batch.items()}
     nll, _ = token_nll(params, cfg, flat, plain=plain,            # aux_weight = 0
                        segment=cb * (cfg.prefix_len + seq))
-    w = weights.to(nll.device, torch.float32).reshape(-1).repeat_interleave(cb)
-    return (w * nll.mean(dim=1)).sum() / (num_chunks * cb)
+    with span("model.head"):
+        w = weights.to(nll.device, torch.float32).reshape(-1).repeat_interleave(cb)
+        return (w * nll.mean(dim=1)).sum() / (num_chunks * cb)
 
 
 def make_coded_train_step(cfg: ModelConfig, n: int, s: int, *, lr: float = 1e-4,
@@ -123,8 +131,10 @@ def make_coded_train_step(cfg: ModelConfig, n: int, s: int, *, lr: float = 1e-4,
             lambda p: coded_loss(p, cfg, coded_batch, weights, total_chunks),
             params,
         )
-        params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
-                                         weight_decay=weight_decay)
+        # through this module's name, which portbench's ``adamw_range`` replaces
+        with span("step.optimizer"):
+            params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
+                                             weight_decay=weight_decay)
         return params, opt_state, {"loss": loss}
 
     return step

@@ -56,6 +56,7 @@ from repro_torch.data import (
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.gc_coding import coded_combine_tree
 from repro_torch.optim import adamw_init, adamw_update
+from repro_torch.tracing import span
 from repro_torch.tree import tree_map
 
 from .coded import init_train_state, make_coded_train_step, value_and_grad
@@ -381,31 +382,44 @@ class VectorizedCodedTrainer:
     def _apply(self, jd) -> None:
         """Decode job ``jd`` as one coded step: gather the job's batch into
         the (n, slots) view, feed the scheme's solved decode weights, update
-        that model in place."""
+        that model in place.  The batch, the step and the loss's read back
+        run in the spans ``train.batch``, ``train.step`` and
+        ``train.loss_read``."""
         sch = self.scheme
-        coded = coded_slot_batch(self._job_batch(jd.job), sch.chunk_slots(jd.job),
-                                 self.num_chunks)
+        with span("train.batch"):
+            batch = self._job_batch(jd.job)
+        coded = coded_slot_batch(batch, sch.chunk_slots(jd.job), self.num_chunks)
         w = torch.from_numpy(sch.decode_weights(jd)).to(self.device)
         midx = (jd.job - 1) % self.num_models
-        self.params[midx], self.opt[midx], metrics = self._step(
-            self.params[midx], self.opt[midx], coded, w
-        )
-        self.losses[midx].append(float(metrics["loss"]))
+        with span("train.step"):
+            self.params[midx], self.opt[midx], metrics = self._step(
+                self.params[midx], self.opt[midx], coded, w
+            )
+        with span("train.loss_read"):
+            self.losses[midx].append(float(metrics["loss"]))
 
     def run(self, J: int, delays: np.ndarray) -> float:
         """Run J jobs against the (>= J+T rounds, n) delay profile; returns
-        the simulated wall clock."""
+        the simulated wall clock.  Each round runs in the span ``train.round``
+        (``t``), its straggler gate in ``train.gate``, the scheme's step and
+        collect in ``train.schedule``, and each decoded job in ``train.job``
+        (``job``)."""
         sch = self.scheme
         extra = (sch.normalized_load - 1.0 / sch.n) * self.alpha
         gate = ConformanceGate(sch.design_model, sch.n)
         clock = 0.0
         for t in range(1, J + sch.T + 1):
-            cand, dt = _round_clock(gate, delays[t - 1] + extra, self.mu)
-            clock += dt
-            sch.step(t, cand)
-            for jd in sch.collect_decodes(t):
-                self._apply(jd)
-                self.job_done_time[jd.job] = clock
+            with span("train.round", t=t):
+                with span("train.gate"):
+                    cand, dt = _round_clock(gate, delays[t - 1] + extra, self.mu)
+                clock += dt
+                with span("train.schedule"):
+                    sch.step(t, cand)
+                    decoded = sch.collect_decodes(t)
+                for jd in decoded:
+                    with span("train.job", job=jd.job):
+                        self._apply(jd)
+                    self.job_done_time[jd.job] = clock
         missing = [j for j in range(1, J + 1) if j not in self.job_done_time]
         assert not missing, f"jobs unfinished: {missing[:4]}"
         return clock
