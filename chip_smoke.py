@@ -293,7 +293,11 @@ Phases, one or more printed lines each; any failure exits non-zero:
                       backward at head dim 64 at [launch]'s step shape (8,
                       14, 4096, 64), kv (8, 2, 4096, 64), 64 key tiles,
                       beside SDPA and its autograd (printed, not in the
-                      kernels line).
+                      kernels line); the RoPE kernel's forward and backward
+                      at hubert-xlarge's GC q and k as the benchmark's cell
+                      runs them, (128, 16, 500, 80) bf16, beside the plain
+                      version, bit-equal first (no library row: no one
+                      PyTorch call computes it).
 The checks that need no card -- [sim]'s descriptor-path ``simulate``,
 [select]'s legacy loop and [launch]'s dry-runs on meta tensors -- run on
 three processes of their own from the build on, beside the card's phases,
@@ -1054,6 +1058,10 @@ def main() -> None:
     row["launches_of"] = f"[slice-audio-train] ({AUDIO_ARCH} coded training, gc and m-sgc)"
     row["max_abs_err"] = errs["flash_attention_bwd dh80 noncausal"]
     rows.append(row)
+    for row in _rope_timings(dev, ptxas):
+        row["launches"] = audio_train_launches[row["name"]]
+        row["launches_of"] = f"[slice-audio-train] ({AUDIO_ARCH} coded training, gc and m-sgc)"
+        rows.append(row)
     _attention_bwd_timing(ATTN_DH256_TILE, heads_view, ptxas)  # printed: one 64-key tile
     # printed: the dh-64 forward and backward at [launch]'s step shape, 64 key tiles
     _attention_served_timing(ATTN_LAUNCH, heads_view, ptxas, iters=10)
@@ -1874,14 +1882,21 @@ def _stub_train(phase, dev, cfg, make_batch, seq, head_bytes, grad_layers, grad_
     gradients bit for bit the same; the f32 coded gradient at
     ``grad_layers`` layers against the plain path and against the sum of
     each chunk's ``chunk_loss_sum`` gradient.  Returns the trainer steps'
-    attention backward launches."""
+    attention backward and RoPE launches."""
     import numpy as np
     import torch
 
+    from repro_torch.kernels.rope.rope import rope, rope_bwd
     from repro_torch.train import init_train_state
 
     counters = _train_counters()
     per_step = _per_step(cfg)
+    # RoPE's two wrappers, counted apart from ``_per_step``'s kernels (the
+    # benchmark's): once a layer's attention in each of the forward and the
+    # recompute, once in the backward
+    rope_counters = {"rope": rope, "rope_bwd": rope_bwd}
+    rope_per_step = {"rope": per_step["flash_attention"],
+                     "rope_bwd": per_step["flash_attention_bwd"]}
     total = torch.cuda.get_device_properties(dev).total_memory
     room = TRAIN_MEMORY_SHARE * total
     state = 12 * cfg.param_count()  # bf16 weight and gradient, f32 AdamW moments
@@ -1889,12 +1904,12 @@ def _stub_train(phase, dev, cfg, make_batch, seq, head_bytes, grad_layers, grad_
                f"in {cfg.dtype}; training state {state} B (12 B a parameter); "
                f"{TRAIN_MEMORY_SHARE:g} of the card is {room:.0f} B of {total} B")
     params, opt = init_train_state(cfg, torch.Generator(device=dev).manual_seed(0))
-    totals, last = {"flash_attention_bwd": 0}, {}
+    totals, last = {"flash_attention_bwd": 0, "rope": 0, "rope_bwd": 0}, {}
     for name in VLM_TRAIN["batch"]:
         step, jobs = _coded_jobs(dev, cfg, name, make_batch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for c in counters.values():
+        for c in (*counters.values(), *rope_counters.values()):
             c.launches = 0
         times, losses = [], []
         for coded, w in jobs:
@@ -1905,6 +1920,7 @@ def _stub_train(phase, dev, cfg, make_batch, seq, head_bytes, grad_layers, grad_
             times.append(time.perf_counter() - t0)
             losses.append(float(m["loss"]))
         launches = {k: c.launches for k, c in counters.items()}
+        rope_launches = {k: c.launches for k, c in rope_counters.items()}
         peak = torch.cuda.max_memory_allocated()
         steps = len(times)
         median_ms = statistics.median(times[1:]) * 1e3
@@ -1920,6 +1936,12 @@ def _stub_train(phase, dev, cfg, make_batch, seq, head_bytes, grad_layers, grad_
         if any(launches[k] != per_step[k] * steps for k in per_step):
             fail(f"{phase} {name}: launches {launches} over {steps} steps, expected "
                  f"{per_step} per step")
+        say(phase, f"{name}: RoPE launches per step "
+                   f"{ {k: v / steps for k, v in rope_launches.items()} } (expected "
+                   f"{rope_per_step})")
+        if any(rope_launches[k] != rope_per_step[k] * steps for k in rope_per_step):
+            fail(f"{phase} {name}: RoPE launches {rope_launches} over {steps} steps, "
+                 f"expected {rope_per_step} per step")
         if (steps != VLM_TRAIN["steps"] or n_seq != VLM_SEQS[name]
                 or not np.isfinite(losses).all()):
             fail(f"{phase} {name}: {steps} steps of {n_seq} sequences, losses {losses}")
@@ -1927,6 +1949,8 @@ def _stub_train(phase, dev, cfg, make_batch, seq, head_bytes, grad_layers, grad_
             fail(f"{phase} {name}: peak memory {peak} B past {TRAIN_MEMORY_SHARE:g} of the "
                  f"card's ({room:.0f} B)")
         totals["flash_attention_bwd"] += launches["flash_attention_bwd"]
+        for k in rope_launches:
+            totals[k] += rope_launches[k]
         _breakdown(f"profile {phase} {name} step",
                    _device_events(lambda: step(params, opt, coded, w)), median_ms)
         if name == "gc":
@@ -2245,6 +2269,64 @@ def _training_timings(dev, cfg, randn, ptxas) -> list:
     torch.cuda.empty_cache()
 
     rows += _rmsnorm_bwd_timings(dev, cfg, randn, ptxas)
+    return rows
+
+
+def _rope_timings(dev, ptxas) -> list:
+    """The RoPE kernel's forward and backward rows at hubert-xlarge's GC coded
+    step as the benchmark's cell runs it (jobs of 32 sequences, s 3: 128
+    sequences): q and k of (128, 16, 500, 80) bf16, read as the
+    projections' head-transposed views, the gradients as the attention
+    backward writes them; each first held bit for bit to the plain version
+    (its eager passes, and autograd's backward of them).  Bound: bytes, each
+    value of q and k read once and written once (the f32 tables, 160 KB,
+    left out); 6 f32 operations a pair of values.  No library row: no one
+    PyTorch call computes it."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rope import ref as rope_ref
+    from repro_torch.kernels.rope.rope import rope, rope_bwd
+
+    cfg = get_config(AUDIO_ARCH)
+    b, h, s, dh = 128, cfg.num_heads, AUDIO_TRAIN["frames"], cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(34)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    xs = [randn(b, s, h * dh).reshape(b, s, h, dh).transpose(1, 2) for _ in range(2)]
+    gs = [randn(b, s, h, dh).transpose(1, 2) for _ in range(2)]
+    positions = torch.arange(s, device=dev)
+    cos, sin = rope_ref.rope_table(positions, dh, cfg.rope_theta, dev)
+    like = [torch.empty_like(x, device="meta") for x in xs]
+    leaves = [x.detach().requires_grad_(True) for x in xs]
+    plain = [rope_ref.apply_rope(x, positions, cfg.rope_theta) for x in leaves]
+    want = torch.autograd.grad(plain, leaves, gs, retain_graph=True)
+    got, dgot = rope(xs, cos, sin), rope_bwd(gs, cos, sin, like)
+    torch.cuda.synchronize()
+    errs = [max((a.float() - w.float()).abs().max().item() for a, w in zip(got, plain)),
+            max((a.float() - w.float()).abs().max().item() for a, w in zip(dgot, want))]
+    equal = all(torch.equal(a, w) for a, w in zip((*got, *dgot), (*plain, *want)))
+    say("timings", f"rope at {tuple(xs[0].shape)} x 2 bf16: forward and backward bit-equal to "
+                   f"the plain version: {equal} (max abs err {errs}); backward layout "
+                   f"{tuple(dgot[0].stride())}; ptxas "
+                   f"{ {k: v for k, v in ptxas.items() if k.startswith('rope_kernel<')} }")
+    if not equal:
+        fail(f"timings: the RoPE kernel differs from the plain version: max abs err {errs}")
+    n_bytes = 4 * xs[0].numel() * xs[0].element_size()
+    n_ops = 3 * 2 * xs[0].numel()
+    rows = []
+    for name, kernel, plain_fn, err in (
+            ("rope", lambda: rope(xs, cos, sin),
+             lambda: [rope_ref.apply_rope(x, positions, cfg.rope_theta) for x in xs], errs[0]),
+            ("rope_bwd", lambda: rope_bwd(gs, cos, sin, like),
+             lambda: torch.autograd.grad(plain, leaves, gs, retain_graph=True), errs[1])):
+        row = _timed(name, "src/repro_torch/kernels/csrc/rope.cu",
+                     "none (src/repro/models/layers.py apply_rope is plain jnp)",
+                     (2, *xs[0].shape), kernel, plain_fn, None, n_bytes, n_ops, "f32", iters=50)
+        row["max_abs_err"] = err
+        rows.append(row)
     return rows
 
 
@@ -4755,6 +4837,8 @@ def _category(name: str) -> str:
         return "flash_attention kernel"
     if "rmsnorm_kernel" in name:
         return "rmsnorm kernel"
+    if "rope_kernel" in name:
+        return "rope kernels"
     if "window_stats_kernel" in name or "buffer_stats_kernel" in name:
         return "gate_window kernels"
     if "ssd_bwd_" in name:

@@ -14,6 +14,9 @@ Kernels:
   * ``gc_coding``       — the coded combine of gradient coding, weights @ parts
     (bandwidth-bound): GC encode and survivor-weighted decode.
   * ``rmsnorm``         — fused RMSNorm forward and backward (bandwidth-bound).
+  * ``rope``            — rotary position embedding of q and k together,
+    forward and backward (bandwidth-bound; port-only: the JAX package's RoPE
+    is plain jnp).
   * ``flash_attention`` — blocked GQA attention forward and backward with
     causal, sliding-window and valid-key masks.
   * ``gate_window``     — the wait-out gate's per-cell window statistics
@@ -25,4 +28,4 @@ Kernels:
     output), forward and backward.
 """
 
-from . import flash_attention, gate_window, gc_coding, rmsnorm, ssd_scan  # noqa: F401
+from . import flash_attention, gate_window, gc_coding, rmsnorm, rope, ssd_scan  # noqa: F401

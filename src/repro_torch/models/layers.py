@@ -3,11 +3,11 @@ decode), the SwiGLU MLP and the top-K mixture of experts.
 
 Port of ``src/repro/models/layers.py``.  Parameters are plain dicts of
 tensors in the JAX package's layout: a dense weight is (d_in, d_out) and is
-applied as ``x @ w``.  RMSNorm and training / prefill attention go through
-the kernel ops, which pick the kernels (forward and backward) or the plain
-version by the tensor's device; ``plain=True`` takes the plain version on any
-device, through ordinary autograd, which is how a run on the card is held
-against the same arithmetic without the kernels.
+applied as ``x @ w``.  RMSNorm, RoPE and training / prefill attention go
+through the kernel ops, which pick the kernels (forward and backward) or the
+plain version by the tensor's device; ``plain=True`` takes the plain version
+on any device, through ordinary autograd, which is how a run on the card is
+held against the same arithmetic without the kernels.
 """
 
 from __future__ import annotations
@@ -23,6 +23,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.kernels.rmsnorm import ref as rn_ref
+from repro_torch.kernels.rope import ops as rope_ops
+from repro_torch.kernels.rope import ref as rope_ref
 from repro_torch.tracing import span
 
 NEG_INF = -1e30
@@ -60,23 +62,14 @@ def rmsnorm_apply(p, x, *, plain: bool = False, eps: float = 1e-6):
 # -- RoPE ---------------------------------------------------------------------
 
 
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exps)
-
-
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (b, h, s, dh); positions: (b, s) or (s,).  Split-half rotation in f32."""
-    dh = x.shape[-1]
-    freqs = rope_frequencies(dh, theta, x.device)               # (dh/2,)
-    if positions.dim() == 1:
-        positions = positions[None, :]
-    angles = positions[..., None].float() * freqs               # (b, s, dh/2)
-    cos = torch.cos(angles)[:, None, :, :]
-    sin = torch.sin(angles)[:, None, :, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+def rope_apply(q, k, positions, theta: float, *, plain: bool = False):
+    """q (b, hq, s, dh) and k (b, hkv, s, dh) rotated by ``positions`` ((s,)
+    or (b, s)): split-half, in f32.  The kernel op on the card, one launch for
+    both; ``plain=True`` takes the plain version on any device."""
+    if plain:
+        return (rope_ref.apply_rope(q, positions, theta),
+                rope_ref.apply_rope(k, positions, theta))
+    return rope_ops.rope(q, k, positions, theta)
 
 
 # -- attention ----------------------------------------------------------------
@@ -103,8 +96,9 @@ def attention_init(gen: torch.Generator, cfg, dtype: torch.dtype) -> dict:
     return p
 
 
-def _project_qkv(p, x, cfg, positions):
-    """Returns q (b, hq, s, dh) and k, v (b, hkv, s, dh) as head-transposed views."""
+def _project_qkv(p, x, cfg, positions, *, plain: bool = False):
+    """Returns q (b, hq, s, dh) and k (b, hkv, s, dh), rotated, and v (b, hkv,
+    s, dh) as a head-transposed view."""
     b, s, _ = x.shape
     dh = cfg.head_dim_
     q = x @ p["wq"]
@@ -115,8 +109,7 @@ def _project_qkv(p, x, cfg, positions):
     q = split_dim(q, -1, cfg.num_heads).reshape(b, s, cfg.num_heads, dh).transpose(1, 2)
     k = split_dim(k, -1, cfg.num_kv_heads).reshape(b, s, cfg.num_kv_heads, dh).transpose(1, 2)
     v = split_dim(v, -1, cfg.num_kv_heads).reshape(b, s, cfg.num_kv_heads, dh).transpose(1, 2)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k = rope_apply(q, k, positions, cfg.rope_theta, plain=plain)
     return q, k, v
 
 
@@ -125,7 +118,7 @@ def attention_apply(p, x, cfg, *, positions=None, plain: bool = False):
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, cfg, positions)
+    q, k, v = _project_qkv(p, x, cfg, positions, plain=plain)
     out = multihead_attention(
         q, k, v, causal=cfg.causal, window=cfg.sliding_window, plain=plain
     )
@@ -149,17 +142,18 @@ def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, a.shape[-2], b.shape[-1])
 
 
-def attention_decode(p, x, cache_k, cache_v, pos: int, cfg):
+def attention_decode(p, x, cache_k, cache_v, pos: int, cfg, *, plain: bool = False):
     """Single-token decode against a KV cache, which it updates in place.
 
     x: (b, 1, d); cache_k/v: (b, hkv, S, dh); pos: current position (tokens
     < pos are valid).  Returns out (b, 1, d).  The products are plain
-    ``torch.matmul`` as in the JAX package, which leaves them to XLA.
+    ``torch.matmul`` as in the JAX package, which leaves them to XLA; RoPE
+    takes the kernel op, or with ``plain=True`` the plain version.
     """
     b = x.shape[0]
     dh = cfg.head_dim_
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(p, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, plain=plain)
     cache_k[:, :, pos] = k_new[:, :, 0]
     cache_v[:, :, pos] = v_new[:, :, 0]
     # GQA without materialising the repeat: fold the q heads into

@@ -476,7 +476,7 @@ def _attn_decode_block(lp, cfg, x, cache_k, cache_v, pos, *, plain, layer=0):
     """One attention block at one token, writing its k, v at ``pos`` of
     ``cache_k`` / ``cache_v`` (b, hkv, max_seq, dh) in place."""
     x = x + attention_decode(lp["attn"], rmsnorm_apply(lp["norm1"], x, plain=plain),
-                             cache_k, cache_v, pos, cfg)
+                             cache_k, cache_v, pos, cfg, plain=plain)
     return x + _ffn(lp, cfg, rmsnorm_apply(lp["norm2"], x, plain=plain), layer=layer)[0]
 
 
