@@ -4,12 +4,17 @@ the work the metrics divide by, and the port's kernel launches a coded step.
 Everything here is counted from the configuration's sizes and the cell's
 shapes, so it stays the same whatever computes the work.  A product of an
 (m, k) by a (k, n) matrix counts 2 m k n operations; elementwise work is not
-counted.
+counted.  The layers' operations and launches are the family's stack module's
+(``stack_ops``, ``launches_per_step``: ``reference.stacks.stack_for``, the
+contract in that package's docstring); a family with no module raises here
+as in the reference.  The kernels' work functions read sizes from the model,
+whatever its family.
 """
 
 from __future__ import annotations
 
-from .reference.model import CONV_K, head_dim, ssm_sizes
+from .reference.model import head_dim, ssm_sizes
+from .reference.stacks import stack_for
 
 #: one NVIDIA H100 SXM at its 700 W limit (NVIDIA's data sheet, dense)
 PEAK_BF16_OPS = 989e12
@@ -25,29 +30,9 @@ def pairs(seq: int, causal: bool) -> int:
 
 def forward_ops(model: dict, seq: int) -> int:
     """Operations of one sequence of ``seq`` positions through the model's
-    forward: every layer's products and the head."""
-    d, L = model["d_model"], model["num_layers"]
-    ops = 2 * seq * d * model["vocab_size"]                          # head
-    if model["family"] in ("dense", "audio"):
-        dh, hq, hkv = head_dim(model), model["num_heads"], model["num_kv_heads"]
-        proj = 2 * seq * d * (hq + 2 * hkv) * dh + 2 * seq * hq * dh * d
-        mlp = 2 * seq * 3 * d * model["d_ff"]
-        attn = 2 * 2 * hq * dh * pairs(seq, model.get("causal", True))
-        return ops + L * (proj + mlp + attn)
-    if model["family"] == "ssm":
-        di, st, nh, hd = ssm_sizes(model)
-        Q = min(model.get("ssm_chunk", 64), seq)
-        nc = -(-seq // Q)
-        causal = Q * (Q + 1) // 2
-        proj = 2 * seq * d * (2 * di + 2 * st + nh) + 2 * seq * di * d
-        conv = 2 * seq * CONV_K * (di + 2 * st)
-        ssd = nc * (2 * st * causal             # C B^T over the causal pairs
-                    + 2 * nh * hd * causal      # the intra-chunk output
-                    + 2 * Q * nh * hd * st      # the chunk's state
-                    + 2 * Q * st * nh * hd      # C . h_prev
-                    + 2 * nh * hd * st)         # the recurrence
-        return ops + L * (proj + conv + ssd)
-    raise NotImplementedError(f"no operation count for the {model['family']} family")
+    forward: the stack's (``stack_ops``) and the head."""
+    head = 2 * seq * model["d_model"] * model["vocab_size"]
+    return head + stack_for(model).stack_ops(model, seq)
 
 
 def step_ops(model: dict, seqs: int, seq: int) -> int:
@@ -95,16 +80,22 @@ def bound_s(ops: int, n_bytes: int) -> float:
     return max(ops / PEAK_BF16_OPS, n_bytes / PEAK_BYTES)
 
 
-def launches_per_step(model: dict) -> dict[str, int]:
-    """The port's kernel launches of one coded step (each layer body
-    rematerialised: its forward kernels run in the forward and again in the
-    backward, its backward kernels once; the final norm's forward once)."""
-    L = model["num_layers"]
-    if model["family"] == "ssm":
-        norms, attn, scans = 2 * L, 0, L
-    else:
-        norms, attn, scans = 2 * L, L, 0
-    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+def step_launches(norms: int = 0, attention: int = 0, scans: int = 0) -> dict[str, int]:
+    """The port's kernel launches of one coded step whose layers run
+    ``norms`` RMSNorms, ``attention`` attention calls and ``scans`` fused SSD
+    chunk scans a forward.  Each layer body is rematerialised: its forward
+    kernels run in the forward and again in the backward, its backward
+    kernels once; the final norm's forward runs once."""
+    return {"flash_attention": 2 * attention, "flash_attention_bwd": attention,
             "rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1,
             "ssd_chunk_scan": 2 * scans, "ssd_chunk_scan_bwd": scans,
             "ssd_intra_chunk": 0, "coded_combine": 0}
+
+
+def launches_per_step(model: dict) -> dict[str, int]:
+    """The port's kernel launches of one coded step: the family's stack
+    module's ``launches_per_step``.  A family with no stack module raises; its
+    launches are never counted as another family's.  ``chip_smoke._per_step``
+    stays the copy that ``test_launch_formula_is_chip_smokes`` checks this
+    against, for the families that have modules (dense and audio, ssm)."""
+    return stack_for(model).launches_per_step(model)

@@ -1,7 +1,12 @@
 """The weights of each model, made on the device from ``--seed``: one draw
 of a standard normal for all the random leaves of a model, in the type the
 model is trained in, each leaf a view of it scaled in place.  The harness
-hands them to the program and, drawn again, to the reference."""
+hands them to the program and, drawn again, to the reference.
+
+The leaves and their order are ``reference.model.param_spec``'s: the shared
+leaves, then the layers' from the family's stack module
+(``reference.stacks.stack_for``, its ``stack_spec``).  The draw is sliced in
+that order, so a reordered spec changes every weight."""
 
 from __future__ import annotations
 
